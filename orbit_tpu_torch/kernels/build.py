@@ -1,0 +1,137 @@
+"""Build and load the port's CUDA kernels (``orbit_tpu_torch/csrc/*.cu``).
+
+On first use the sources are compiled by ``nvcc`` for Hopper (``sm_90a``)
+into one shared library with a plain C interface, under
+``build/orbit_tpu_torch_kernels/<hash of the sources>/`` at the repository
+root, and loaded with ``ctypes``. A later process with the same sources
+loads the library it finds there. There is no fallback: without ``nvcc``
+the build raises.
+
+Every C entry returns ``cudaGetLastError()`` after its launch;
+:func:`check` raises when that code is not 0, so a launch the device
+refused (too much shared memory, a bad grid) never passes silently.
+:data:`LAUNCHES` counts, per kernel, the launches its wrapper made.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "orbit_tpu_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# kernel name -> launches made by its wrapper (plain integers; reset with
+# reset_launch_counts before a run whose launches are to be counted)
+LAUNCHES = {"fused_qkv_attention": 0, "fused_mlp_block": 0}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # x, w, b, out, B, S, D, H, stream
+    "orbit_fused_qkv_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "orbit_fused_qkv_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, ln_g, ln_b, w1, b1, w2, b2, out, rows, D, hidden, eps, stream
+    "orbit_fused_mlp_block_f32": [_P] * 8 + [_I, _I, _I, _F, _P],
+    "orbit_fused_mlp_block_bf16": [_P] * 8 + [_I, _I, _I, _F, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None  # wall time of this process's nvcc run, if it ran one
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    cu, cuh = _sources()
+    for path in cu + cuh:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc:
+        return nvcc
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and Path(CUDA_HOME, "bin", "nvcc").exists():
+        return str(Path(CUDA_HOME, "bin", "nvcc"))
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME): the orbit_tpu_torch "
+                       "kernels are built from source on first use")
+
+
+def library_path() -> Path:
+    return BUILD_ROOT / _digest() / "liborbit_tpu_torch_kernels.so"
+
+
+def build() -> Path:
+    """Compile the kernels if this exact source set has not been built;
+    return the library's path. The compiler's output (``-Xptxas -v``:
+    registers, shared memory, spills per kernel) is kept in ``nvcc.log``
+    beside it."""
+    global build_seconds
+    so = library_path()
+    if so.exists():
+        return so
+    nvcc = _find_nvcc()
+    so.parent.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f".{so.name}.{os.getpid()}.tmp")
+    cu, _ = _sources()
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    (so.parent / "nvcc.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
+                           f"{proc.stderr[-6000:]}")
+    os.replace(tmp, so)  # atomic: a concurrent build never loads a torn file
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.orbit_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.orbit_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def aligned(t, nbytes: int = 32):
+    """``t`` contiguous with a data pointer on an ``nbytes`` boundary (the
+    tensor-core fragment loads read 32-byte aligned rows); copies a view
+    that starts elsewhere."""
+    t = t.contiguous()
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
+
+
+def check(code: int, kernel: str) -> None:
+    """Raise if a C entry reported a CUDA error for its launch."""
+    if code:
+        msg = library().orbit_cuda_error_string(code).decode()
+        raise RuntimeError(f"{kernel}: CUDA error {code} at launch: {msg}")
