@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``orbit_tpu_torch/csrc/*.cu``).
 
-On first use the sources are compiled by ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, under
+On first use the sources are compiled by ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` process per source, all started together, and linked into one
+shared library with a plain C interface, under
 ``build/orbit_tpu_torch_kernels/<hash of the sources>/`` at the repository
 root, and loaded with ``ctypes``. A later process with the same sources
 loads the library it finds there. There is no fallback: without ``nvcc``
@@ -26,11 +27,16 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "orbit_tpu_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernel name -> launches made by its wrapper (plain integers; reset with
 # reset_launch_counts before a run whose launches are to be counted)
-LAUNCHES = {"fused_qkv_attention": 0, "fused_mlp_block": 0}
+LAUNCHES = {"fused_qkv_attention": 0, "fused_mlp_block": 0,
+            "fused_qkv_attention_bwd": 0, "fused_mlp_block_bwd": 0}
+
+# rows per partial sum of the backward kernels' column sums (kSumRows in
+# csrc/common.cuh): their workspace holds ceil(rows / COLSUM_ROWS) x N floats
+COLSUM_ROWS = 256
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -40,6 +46,13 @@ _SIGNATURES = {
     # x, ln_g, ln_b, w1, b1, w2, b2, out, rows, D, hidden, eps, stream
     "orbit_fused_mlp_block_f32": [_P] * 8 + [_I, _I, _I, _F, _P],
     "orbit_fused_mlp_block_bf16": [_P] * 8 + [_I, _I, _I, _F, _P],
+    # x, w, b, g, qkv, dqkv, partial, dx, dw, db, B, S, D, H, stream
+    "orbit_fused_qkv_attention_bwd_f32": [_P] * 10 + [_I] * 4 + [_P],
+    "orbit_fused_qkv_attention_bwd_bf16": [_P] * 10 + [_I] * 4 + [_P],
+    # x, g, ln_g, ln_b, w1, b1, w2, stats, xn, hg, h, dxn, partial, dx,
+    # dln_g, dln_b, dw1, db1, dw2, db2, rows, D, hidden, eps, stream
+    "orbit_fused_mlp_block_bwd_f32": [_P] * 20 + [_I, _I, _I, _F, _P],
+    "orbit_fused_mlp_block_bwd_bf16": [_P] * 20 + [_I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()
@@ -91,17 +104,33 @@ def build() -> Path:
         return so
     nvcc = _find_nvcc()
     so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f".{so.name}.{os.getpid()}.tmp")
+    tag = f".{os.getpid()}.tmp"
     cu, _ = _sources()
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    objs = [so.with_name(f"{src.stem}{tag}.o") for src in cu]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(cu, objs)]
+    tmp = so.with_name(f".{so.name}{tag}")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    failed = [(cmd, out) for cmd, out, p in zip(cmds, outs, procs) if p.returncode]
+    if not failed:
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+        cmds.append(link)
+        outs.append(proc.stdout)
+        if proc.returncode:
+            failed.append((link, proc.stdout))
     build_seconds = time.perf_counter() - t0
-    (so.parent / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{proc.stderr[-6000:]}")
+    (so.parent / "nvcc.log").write_text("".join(
+        " ".join(cmd) + "\n" + out for cmd, out in zip(cmds, outs)))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        cmd, out = failed[0]
+        raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{out[-6000:]}")
     os.replace(tmp, so)  # atomic: a concurrent build never loads a torn file
     return so
 

@@ -1,17 +1,169 @@
-"""Eval step functions (counterpart of ``orbit_tpu/learners/steps.py``
-``build_eval_fns``; reference: the personalise/predict calls in
-single-step-learner.py:245-375).
+"""Per-task step functions for meta-training and evaluation (counterpart of
+``orbit_tpu/learners/steps.py``; reference: single-step-learner.py:196-243
+and the personalise/predict calls in :245-375).
 
-PyTorch runs eagerly, so there is nothing to compile: the functions only
-fix the call signature and run under ``torch.inference_mode()``.
+PyTorch runs eagerly, so there is nothing to compile. A train step runs the
+task's forward and backward and adds the task's gradient, already scaled by
+``1/tasks_per_batch``, into the parameters' ``.grad``; the learner applies
+one optimiser update every ``tasks_per_batch`` tasks
+(:func:`build_apply_update`), as the JAX learner accumulates its returned
+gradient trees. A step returns ``(loss, target_logits)``.
+
+LITE (reference: few_shot_recognisers.py:328-437): the context is embedded
+once per task without a graph (the cache); per target batch a fresh random
+subset of ``num_lite_samples`` context clips, valid rows first, is
+re-embedded with gradients and scattered into the cache, and that batch's
+loss is ``n_ctx/(num_lite·tasks_per_batch)·CE``. The batch boundaries are
+the JAX package's (full ``batch_size`` batches, the remainder last). Eager
+torch runs each batch at its real size: the target rows after the last
+real one (the episode's bucket padding) are not run, so the tail batch is
+ragged and a batch of padding only does not exist; the JAX package's
+pad-to-8 of the tail (orbit_tpu/learners/steps.py:296-304) has no
+counterpart. Those rows add nothing to the masked loss, so the gradients
+are the JAX step's, and the logits returned are those of the rows run. The
+subsets come from an explicit ``torch.Generator``; the JAX threefry draw
+cannot be reproduced, so tests inject them (``grad_idxs``).
+
+An all-padding episode contributes zero loss and no gradient. With nothing
+trainable (a frozen extractor and the proto heads) no graph is built and no
+backward runs; :func:`build_apply_update` then feeds the optimiser the zero
+gradients that the JAX step returns.
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple
+import math
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from orbit_tpu_torch.models.recognisers import SingleStepFewShotRecogniser
+from orbit_tpu_torch.utils.optim import cross_entropy
+
+Episode = Dict[str, torch.Tensor]
+
+
+def _trainable(recogniser: torch.nn.Module) -> bool:
+    return any(p.requires_grad for p in recogniser.parameters())
+
+
+def _is_real(target_mask: torch.Tensor) -> bool:
+    return bool((target_mask > 0).any())
+
+
+def _rows_to_run(target_mask: torch.Tensor) -> int:
+    """The target rows up to the last real one (0 for all padding)."""
+    if target_mask.shape[0] < 1:
+        raise ValueError("a train task needs target rows (m > 0)")
+    real = torch.nonzero(target_mask > 0)
+    return int(real.max()) + 1 if real.numel() else 0
+
+
+def build_train_task(recogniser: SingleStepFewShotRecogniser, args) -> Callable:
+    """Non-LITE meta-training step: personalise on the context with
+    gradients, predict the target, loss = CE/tasks_per_batch
+    (single-step-learner.py:196-210). Returns fn(episode) -> (loss, logits)."""
+    tasks_per_batch = args.tasks_per_batch
+
+    def train_task(episode: Episode, generator: Optional[torch.Generator] = None):
+        del generator  # non-LITE draws nothing
+        m = _rows_to_run(episode["target_mask"])
+        if m == 0:  # all padding: zero loss, no gradient
+            return (torch.zeros((), device=episode["target_mask"].device),
+                    torch.zeros((0, episode["class_mask"].shape[0])))
+        with torch.set_grad_enabled(_trainable(recogniser)):
+            state = recogniser.personalise(
+                episode["context_clips"], episode["context_labels"],
+                episode["context_mask"], episode["class_mask"].shape[0],
+                with_grad=True)
+            logits = recogniser.predict(state, episode["target_clips"][:m],
+                                        class_mask=episode["class_mask"],
+                                        with_grad=True)
+            loss = cross_entropy(logits, episode["target_labels"][:m],
+                                 episode["target_mask"][:m]) / tasks_per_batch
+        if loss.requires_grad:
+            loss.backward()
+        return loss.detach(), logits.detach()
+
+    return train_task
+
+
+def lite_grad_subset(generator: torch.Generator, context_mask: torch.Tensor,
+                     num_lite: int) -> torch.Tensor:
+    """``num_lite`` random context indices, valid rows first (the reference
+    permutes real rows only, few_shot_recognisers.py:335-336): the JAX
+    package's ``argsort(uniform - 10·mask)[:L]`` with torch's generator."""
+    n = context_mask.shape[0]
+    noise = torch.rand(n, generator=generator)
+    order = torch.argsort(noise - context_mask.detach().float().cpu() * 10.0)
+    return order[:min(num_lite, n)]
+
+
+def build_train_task_lite(recogniser: SingleStepFewShotRecogniser, args) -> Callable:
+    """LITE meta-training step (single-step-learner.py:212-243). Returns
+    fn(episode, generator, grad_idxs=None) -> (loss, logits); ``grad_idxs``
+    is an optional sequence of one index tensor per target batch run, in
+    place of the generator's draws."""
+    tasks_per_batch = args.tasks_per_batch
+    num_lite = args.num_lite_samples
+    batch_size = args.batch_size
+
+    def train_task_lite(episode: Episode, generator: Optional[torch.Generator] = None,
+                        grad_idxs: Optional[Sequence[torch.Tensor]] = None):
+        ctx, ctx_mask = episode["context_clips"], episode["context_mask"]
+        labels, class_mask = episode["context_labels"], episode["class_mask"]
+        tgt = episode["target_clips"]
+        m = _rows_to_run(episode["target_mask"])
+        nb = math.ceil(m / batch_size)
+        if grad_idxs is not None and len(grad_idxs) != nb:
+            raise ValueError(f"{len(grad_idxs)} injected subsets for {nb} target batches")
+        trainable = _trainable(recogniser)
+        # the per-task cache: every context clip, no graph
+        feats_cache = recogniser.embed_clips(ctx, with_grad=False)
+        scaling = ctx_mask.float().sum() / (num_lite * tasks_per_batch)
+
+        loss_total = torch.zeros((), device=ctx.device)
+        logits_parts = []
+        for i in range(nb):
+            rows = slice(i * batch_size, min((i + 1) * batch_size, m))
+            tgt_mask = episode["target_mask"][rows]
+            idx = (grad_idxs[i] if grad_idxs is not None
+                   else lite_grad_subset(generator, ctx_mask, num_lite))
+            idx = idx.to(device=ctx.device, dtype=torch.long)
+            real = _is_real(tgt_mask)
+            with torch.set_grad_enabled(trainable):
+                grad_feats = recogniser.embed_clips(ctx[idx], with_grad=True)
+                feats = feats_cache.index_copy(0, idx, grad_feats)
+                head = recogniser.configure_head(feats, labels, ctx_mask,
+                                                 class_mask.shape[0])
+                tgt_feats = recogniser.embed_clips(tgt[rows], with_grad=True)
+                logits = recogniser.head_logits(head, tgt_feats, class_mask)
+                loss = float(real) * (scaling * cross_entropy(
+                    logits, episode["target_labels"][rows], tgt_mask))
+            if real and loss.requires_grad:
+                loss.backward()
+            loss_total += loss.detach()
+            logits_parts.append(logits.detach())
+        if not logits_parts:  # all padding: zero loss, no gradient
+            return loss_total, torch.zeros((0, class_mask.shape[0]), device=ctx.device)
+        return loss_total, torch.cat(logits_parts)
+
+    return train_task_lite
+
+
+def build_apply_update(optimizer: torch.optim.Optimizer) -> Callable[[], None]:
+    """One optimiser update from the accumulated ``.grad``, then clear it.
+    A parameter that received no gradient gets zeros first, as the JAX step
+    returns them (so Adam's weight decay and step count match)."""
+
+    def apply_update():
+        for group in optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
+
+    return apply_update
 
 
 def build_eval_fns(recogniser: SingleStepFewShotRecogniser) -> Tuple[Callable, Callable]:

@@ -10,8 +10,12 @@ The forward copies the JAX module's casts: every op sees ``x`` cast to the
 compute dtype; LayerNorms compute in f32 and round to it; ``proj`` is a
 dtype matmul plus a dtype bias, like ``nn.Dense(dtype=...)``. Each encoder
 layer runs the two kernel ops, :func:`fused_qkv_attention` (kernel A) and
-:func:`fused_mlp_block` (kernel B). The class token after the final norm
-comes out as f32.
+:func:`fused_mlp_block` (kernel B), whose backward kernels run when
+autograd records. The class token after the final norm comes out as f32.
+
+Parameters are trainable f32 masters, as Flax keeps them: under bf16
+compute the casts sit inside the forward, so the gradients arrive in f32.
+Eval may store them in bf16 (``precision.cast_extractor_params``).
 """
 from __future__ import annotations
 
@@ -40,7 +44,7 @@ def _lecun_normal_(t: torch.Tensor, fan_in: int, g: torch.Generator):
 
 
 def _param(*shape) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(shape), requires_grad=False)
+    return nn.Parameter(torch.zeros(shape))
 
 
 class DenseParams(nn.Module):

@@ -8,9 +8,11 @@ np.asarray, variables)``), and returns the state dict of
 :class:`orbit_tpu_torch.models.recognisers.SingleStepFewShotRecogniser`.
 The port keeps the Flax names and layouts, so the mapping is a renaming
 (``blocks_3/attn/qkv/kernel`` -> ``extractor.blocks.3.attn.qkv.kernel``).
-Like ``orbit_tpu/models/convert.py`` it refuses silent drops: a leaf it
-does not map raises, and so does a parameter of the inferred architecture
-that no leaf sets.
+The depth comes from the tree, so a depth-reduced ViT maps as well, and so
+does a tree of gradients with the variables' structure. Like
+``orbit_tpu/models/convert.py`` it refuses silent drops: a leaf it does not
+map raises, and so does a parameter of the inferred architecture that no
+leaf sets.
 
 Reading flax msgpack checkpoints needs flax, which the port does not
 import; :func:`save`/:func:`load` write and read the port's state dict as a

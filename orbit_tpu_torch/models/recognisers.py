@@ -1,4 +1,4 @@
-"""Single-step few-shot recogniser, eval only (counterpart of
+"""Single-step few-shot recogniser (counterpart of
 ``orbit_tpu/models/recognisers.py`` ``SingleStepFewShotRecogniser``;
 reference: model/few_shot_recognisers.py:271-473).
 
@@ -6,15 +6,21 @@ reference: model/few_shot_recognisers.py:271-473).
     task_state = recogniser.personalise(context_clips, labels, mask, num_classes)
     logits     = recogniser.predict(task_state, clips, class_mask)
 
-Episodes arrive padded with validity masks (``orbit_tpu.data.episodes``) as
-uint8 pixels; each feature-extraction chunk is normalised on the device and
-cast to the compute dtype there, so only the live chunk is ever expanded.
-Chunks are a Python loop at ``batch_size`` frames; the tail chunk runs at
-its real size (the ViT is per-row, so this equals the JAX package's padded
-``lax.map``). Features come out f32.
+Episodes arrive padded with validity masks (``orbit_tpu_torch.data.episodes``)
+as uint8 pixels; each feature-extraction chunk is normalised on the device
+and cast to the compute dtype there, so only the live chunk is ever
+expanded. Chunks are a Python loop at ``batch_size`` frames; the tail chunk
+runs at its real size (the ViT is per-row, so this equals the JAX package's
+padded ``lax.map``). Features come out f32.
 
-Not ported yet: FiLM adaptation (``adapt_features``), LITE and train mode,
-and the ``linear``/``versa``/``mahalanobis`` heads.
+Meta-training (``learners/steps.py``) embeds with ``with_grad=True``: above
+``batch_size`` frames each chunk runs under ``torch.utils.checkpoint``,
+where the JAX package rematerialises its chunks with ``jax.checkpoint``
+(orbit_tpu/models/recognisers.py:200-205), so activation memory stays one
+chunk's. The ViTs have no BatchNorm, so train mode changes no forward.
+
+Not ported yet: FiLM adaptation (``adapt_features``) and the
+``linear``/``versa``/``mahalanobis`` heads.
 """
 from __future__ import annotations
 
@@ -22,8 +28,9 @@ from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from orbit_tpu.data.index import NORMALIZE_STATS
+from orbit_tpu_torch.data.index import NORMALIZE_STATS
 from orbit_tpu_torch.models import heads as heads_lib
 from orbit_tpu_torch.models.backbones import create_feature_extractor
 from orbit_tpu_torch.models.poolers import mean_pool_clips
@@ -69,11 +76,6 @@ class SingleStepFewShotRecogniser(nn.Module):
         self.extractor.to(device)
         return self
 
-    def train(self, mode: bool = True):
-        if mode:
-            raise NotImplementedError("train mode: not ported yet (eval only)")
-        return super().train(False)
-
     # -------------------------------------------------- feature extraction ----
     def _maybe_normalize(self, frames: torch.Tensor) -> torch.Tensor:
         """uint8 pixels -> ((x/255 - mean)/std) in the compute dtype, on the
@@ -83,29 +85,50 @@ class SingleStepFewShotRecogniser(nn.Module):
         x = frames.float() / 255.0
         return ((x - self.pixel_mean) / self.pixel_std).to(self.dtype)
 
-    def embed_frames(self, frames: torch.Tensor) -> torch.Tensor:
-        """(N, H, W, 3) -> (N, D) f32 features, ``batch_size`` frames at a time."""
-        feats = [self.extractor(self._maybe_normalize(frames[i:i + self.batch_size]))
-                 for i in range(0, frames.shape[0], self.batch_size)]
-        return torch.cat(feats).float()
+    def _embed_chunk(self, frames: torch.Tensor) -> torch.Tensor:
+        return self.extractor(self._maybe_normalize(frames))
 
-    def embed_clips(self, clips: torch.Tensor) -> torch.Tensor:
+    def embed_frames(self, frames: torch.Tensor, with_grad: bool = False) -> torch.Tensor:
+        """(N, H, W, 3) -> (N, D) f32 features, ``batch_size`` frames at a
+        time. ``with_grad=False`` records no graph; with gradients and more
+        than one chunk, each chunk is recomputed in the backward
+        (``torch.utils.checkpoint``)."""
+        n, b = frames.shape[0], self.batch_size
+        chunks = [frames[i:i + b] for i in range(0, n, b)]
+        with torch.set_grad_enabled(with_grad and torch.is_grad_enabled()):
+            if torch.is_grad_enabled() and len(chunks) > 1:
+                feats = [checkpoint(self._embed_chunk, c, use_reentrant=False)
+                         for c in chunks]
+            else:
+                feats = [self._embed_chunk(c) for c in chunks]
+            return torch.cat(feats).float()
+
+    def embed_clips(self, clips: torch.Tensor, with_grad: bool = False) -> torch.Tensor:
         """(N, T, H, W, 3) -> (N, D): frame features mean-pooled per clip."""
         n, t = clips.shape[:2]
-        feats = self.embed_frames(clips.reshape(n * t, *clips.shape[2:]))
+        feats = self.embed_frames(clips.reshape(n * t, *clips.shape[2:]), with_grad)
         return mean_pool_clips(feats, t)
+
+    # ----------------------------------------------------------- heads ----
+    def configure_head(self, context_features, context_labels, sample_mask,
+                       num_classes: int) -> Dict[str, torch.Tensor]:
+        return heads_lib.CONFIGURE[self.classifier](
+            context_features, context_labels, sample_mask, num_classes)
+
+    def head_logits(self, head, features,
+                    class_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return heads_lib.PREDICT[self.classifier](
+            head, features, logit_scale=self.logit_scale, class_mask=class_mask)
 
     # ----------------------------------------------------- personalise ----
     def personalise(self, context_clips, context_labels, context_mask,
-                    num_classes: int) -> TaskState:
-        feats = self.embed_clips(context_clips)
-        head = heads_lib.CONFIGURE[self.classifier](
-            feats, context_labels, context_mask, num_classes)
-        return {"head": head}
+                    num_classes: int, with_grad: bool = False) -> TaskState:
+        feats = self.embed_clips(context_clips, with_grad)
+        return {"head": self.configure_head(feats, context_labels, context_mask,
+                                            num_classes)}
 
     def predict(self, task_state: TaskState, clips,
-                class_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        feats = self.embed_clips(clips)
-        return heads_lib.PREDICT[self.classifier](
-            task_state["head"], feats, logit_scale=self.logit_scale,
-            class_mask=class_mask)
+                class_mask: Optional[torch.Tensor] = None,
+                with_grad: bool = False) -> torch.Tensor:
+        feats = self.embed_clips(clips, with_grad)
+        return self.head_logits(task_state["head"], feats, class_mask)

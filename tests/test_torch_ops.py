@@ -4,7 +4,9 @@ package, and the CUDA kernels held against their plain PyTorch versions.
 On a host without a card the port's ops take their plain versions, which
 are compared with the JAX ops run as the JAX suite runs them on the CPU:
 ``impl="interpret"`` (the Pallas kernel body in the interpreter) and
-``impl="xla"``. Inputs are made with numpy from a seed and fed to both.
+``impl="xla"``; the backward through the ops' autograd Functions against
+the JAX ops' ``jax.vjp``. Inputs are made with numpy from a seed and fed to
+both.
 Tests marked ``cuda`` compare each kernel with its plain version on the
 card at the ViT shapes; they skip without one. JAX is imported only inside
 the JAX comparisons, so the ``cuda`` tests also run where JAX is absent:
@@ -19,6 +21,11 @@ Tolerances:
   ulp travels on through the later products. bf16 has 8 significant bits
   (one ulp is 2^-8 to 2^-7 of a value), so two ulps: 2^-6 relative, plus the
   same absolute term scaled to the outputs' O(1) size.
+- Gradients, per tensor against its largest value (the parameter gradients
+  are sums over all B*S rows, with many terms near zero). f32: summation
+  order only, 1e-5. bf16: both sides round qkv, p, ds, dqkv, xn, hg and
+  dhpre at the same points, and a one-ulp flip of one element feeds the
+  later sums: 2^-6, as for the outputs.
 """
 from __future__ import annotations
 
@@ -27,13 +34,15 @@ import pytest
 import torch
 
 from orbit_tpu_torch.kernels import build as kbuild
-from orbit_tpu_torch.ops import (fused_mlp_block, fused_qkv_attention,
+from orbit_tpu_torch.ops import (fused_mlp_block, fused_mlp_block_backward,
+                                 fused_qkv_attention, fused_qkv_attention_backward,
                                  mlp_block_reference, qkv_attention_reference)
 from orbit_tpu_torch.ops import mlp_block as mlp_mod
 from orbit_tpu_torch.ops import tiny_attention as attn_mod
 
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
        "bfloat16": dict(rtol=2.0 ** -6, atol=2.0 ** -6)}
+GRAD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -113,6 +122,59 @@ def test_mlp_block_matches_jax(jax_impl, dtype, batch):
                                    keep_f32=(1, 2, 4, 6)), ln_eps=1e-6)
     assert ours.dtype == getattr(torch, dtype) and ours.shape == (batch, 50, 128)
     _close(ours, ref, dtype)
+
+
+def _grads_close(ours, refs, dtype: str):
+    for i, (a, r) in enumerate(zip(ours, refs)):
+        r = np.asarray(r).astype(np.float32)
+        np.testing.assert_allclose(a.float().numpy(), r, rtol=0,
+                                   atol=GRAD_TOL[dtype] * np.abs(r).max(),
+                                   err_msg=f"gradient {i}")
+
+
+def _jax_vjp(op, primals, cotangent):
+    """The JAX op's vjp at ``primals``, compiled: one cotangent per primal."""
+    import jax
+    return jax.jit(lambda p, g: jax.vjp(op, *p)[1](g))(tuple(primals), cotangent)
+
+
+# the backward: f32 against the Pallas backward body (interpret) and XLA at
+# B = 5 and a ragged 3; bf16 against the Pallas body. x and the cotangent
+# are in the dtype, the parameters f32, as the train path holds them.
+BWD_CASES = [("float32", 5, "interpret"), ("float32", 5, "xla"),
+             ("float32", 3, "interpret"), ("bfloat16", 5, "interpret"),
+             ("bfloat16", 3, "interpret")]
+
+
+@pytest.mark.parametrize("dtype,batch,jax_impl", BWD_CASES)
+def test_qkv_attention_backward_matches_jax(dtype, batch, jax_impl):
+    from orbit_tpu.ops.tiny_attention import fused_qkv_attention as jax_op
+    arrays = _qkv_inputs(batch, 50, 128, seed=3)
+    cot = np.random.default_rng(4).standard_normal((batch, 50, 128)).astype(np.float32)
+    refs = _jax_vjp(lambda x, w, b: jax_op(x, w, b, 2, impl=jax_impl),
+                    _jax_arrays(arrays, dtype, keep_f32=(1, 2)),
+                    _jax_arrays([cot], dtype)[0])
+    x, w, b = (t.requires_grad_() for t in _torch(arrays, getattr(torch, dtype),
+                                                   keep_f32=(1, 2)))
+    fused_qkv_attention(x, w, b, 2).backward(_torch([cot], getattr(torch, dtype))[0])
+    assert x.grad.dtype == x.dtype and w.grad.dtype == b.grad.dtype == torch.float32
+    _grads_close((x.grad, w.grad, b.grad), refs, dtype)
+
+
+@pytest.mark.parametrize("dtype,batch,jax_impl", BWD_CASES)
+def test_mlp_block_backward_matches_jax(dtype, batch, jax_impl):
+    from orbit_tpu.ops.mlp_block import fused_mlp_block as jax_op
+    arrays = _mlp_inputs(batch, 50, 128, seed=5)
+    cot = np.random.default_rng(6).standard_normal((batch, 50, 128)).astype(np.float32)
+    keep = (1, 2, 3, 4, 5, 6)
+    refs = _jax_vjp(lambda *a: jax_op(*a, ln_eps=1e-6, impl=jax_impl),
+                    _jax_arrays(arrays, dtype, keep_f32=keep),
+                    _jax_arrays([cot], dtype)[0])
+    params = [t.requires_grad_() for t in _torch(arrays, getattr(torch, dtype),
+                                                  keep_f32=keep)]
+    fused_mlp_block(*params, ln_eps=1e-6).backward(_torch([cot], getattr(torch, dtype))[0])
+    assert params[0].grad.dtype == params[0].dtype
+    _grads_close([p.grad for p in params], refs, dtype)
 
 
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
@@ -207,9 +269,58 @@ def test_mlp_block_kernel_matches_plain(cuda_device, dtype, shape):
                                ref.float().cpu().numpy(), **TOL[dtype])
 
 
+# the backward kernels at the ViT-B/32 and ViT-S/32 shapes, B = 256 and 13
+BWD_SHAPES = VIT_SHAPES[:4] + [(5, 50, 128, 2)]
+
+
 @pytest.mark.cuda
-def test_kernels_refuse_gradients(cuda_device):
-    x, w, b = _torch(_qkv_inputs(2, 5, 128), torch.float32, device=cuda_device)
-    x.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward kernel"):
-        fused_qkv_attention(x, w, b, 2)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_qkv_attention_backward_kernel_matches_plain(cuda_device, dtype, shape):
+    b, s, d, h = shape
+    dt = getattr(torch, dtype)
+    args = _torch(_qkv_inputs(b, s, d, seed=7), dt, device=cuda_device)
+    cot = torch.randn(b, s, d, device=cuda_device).to(dt)
+    n0 = kbuild.LAUNCHES["fused_qkv_attention_bwd"]
+    ours = fused_qkv_attention_backward(*args, cot, h)
+    assert kbuild.LAUNCHES["fused_qkv_attention_bwd"] == n0 + 1
+    again = fused_qkv_attention_backward(*args, cot, h)
+    ref = fused_qkv_attention_backward(*args, cot, h, impl="reference")
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(ours, again))  # no atomics
+    _grads_close([t.cpu() for t in ours], [t.float().cpu().numpy() for t in ref], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_mlp_block_backward_kernel_matches_plain(cuda_device, dtype, shape):
+    b, s, d, _ = shape
+    dt = getattr(torch, dtype)
+    # x, ln_scale, ln_bias, w1, b1, w2 (the backward takes no b2)
+    args = _torch(_mlp_inputs(b, s, d, seed=8), dt, keep_f32=(1, 2, 4, 6),
+                  device=cuda_device)[:6]
+    cot = torch.randn(b, s, d, device=cuda_device).to(dt)
+    n0 = kbuild.LAUNCHES["fused_mlp_block_bwd"]
+    ours = fused_mlp_block_backward(*args, cot, ln_eps=1e-6)
+    assert kbuild.LAUNCHES["fused_mlp_block_bwd"] == n0 + 1
+    again = fused_mlp_block_backward(*args, cot, ln_eps=1e-6)
+    ref = fused_mlp_block_backward(*args, cot, ln_eps=1e-6, impl="reference")
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(ours, again))  # no atomics
+    _grads_close([t.cpu() for t in ours], [t.float().cpu().numpy() for t in ref], dtype)
+
+
+@pytest.mark.cuda
+def test_autograd_runs_the_backward_kernels(cuda_device):
+    x, w, b = (t.requires_grad_() for t in _torch(_qkv_inputs(2, 5, 128), torch.float32,
+                                                   device=cuda_device))
+    before = dict(kbuild.LAUNCHES)
+    fused_qkv_attention(x, w, b, 2).sum().backward()
+    m = [t.requires_grad_() for t in _torch(_mlp_inputs(2, 5, 128), torch.float32,
+                                             device=cuda_device)]
+    fused_mlp_block(*m).sum().backward()
+    torch.cuda.synchronize()
+    for name in kbuild.LAUNCHES:
+        assert kbuild.LAUNCHES[name] == before[name] + 1, name
+    assert all(t.grad is not None for t in (x, w, b, *m))

@@ -8,8 +8,9 @@
   on the synthetic ORBIT tree of ``conftest.orbit_fixture_tree``, with the
   flags of ``tests/test_learners.py`` and the JAX learner's parameters:
   the per-frame predictions in ``results.json`` and the logits behind them;
-- the import boundary: the port and ``chip_smoke.py`` load no JAX, Flax or
-  PIL, and ``chip_smoke.py`` refuses to run without a GPU.
+- the import boundary: the port, its CLI and ``chip_smoke.py`` load no JAX,
+  Flax or PIL and nothing of the JAX package, and ``chip_smoke.py`` refuses
+  to run without a GPU.
 
 f32 tolerance: the two sides differ in summation order only; through 12
 layers and the final LayerNorm the features agree to about 1e-5 of their
@@ -153,7 +154,7 @@ def test_port_learner_matches_jax_learner(orbit_root, tmp_path, monkeypatch):
                     "context_shot", "target_shot", "test_target_clip_method",
                     "classifier", "feature_extractor", "mode"):
             argv += [f"--{flag}", str(value)]
-    single_step_learner_torch.main(argv)
+    single_step_learner_torch.main(argv, device="cpu")
 
     t_results = sorted((tmp_path / "torch").glob("*/results.json"))
     assert len(t_results) == 1
@@ -195,11 +196,14 @@ def _run(code: list, cwd) -> subprocess.CompletedProcess:
 
 
 def test_port_imports_no_jax_flax_or_pil():
-    code = ("import sys\n"
-            "import orbit_tpu_torch, orbit_tpu_torch.ops, orbit_tpu_torch.models.convert\n"
-            "import orbit_tpu_torch.learners.single_step, single_step_learner_torch\n"
-            "import chip_smoke\n"
-            "bad = [m for m in ('jax', 'flax', 'PIL', 'optax') if m in sys.modules]\n"
+    code = ("import importlib, pkgutil, sys\n"
+            "import orbit_tpu_torch\n"
+            "for m in pkgutil.walk_packages(orbit_tpu_torch.__path__, 'orbit_tpu_torch.'):\n"
+            "    if m.module_finder.find_spec(m.name).origin.endswith('.py'):  # not a built .so\n"
+            "        importlib.import_module(m.name)\n"
+            "import single_step_learner_torch, chip_smoke\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'flax', 'PIL', 'optax')\n"
+            "       or m == 'orbit_tpu' or m.startswith('orbit_tpu.')]\n"
             "assert not bad, bad\n")
     proc = _run(["-c", code], REPO)
     assert proc.returncode == 0, proc.stderr
