@@ -9,9 +9,14 @@ Phases, each of which passes or raises:
 3. kernels: kernel A (fused qkv attention), kernel B (fused MLP block) and
    their backward kernels against their plain PyTorch versions on the card,
    at the ViT-B/32 and ViT-S/32 shapes (B = 256 and a ragged 13, S = 50), in
-   f32 and bf16; timed with CUDA events at B = 256, each beside its bound,
-   and repeated at B = 256 to show that a second call gives the same bits;
-4. main path: the CLU-VE test protocol of the port's single-step learner on
+   f32 and bf16; the fused depthwise tail (#8) at EfficientNet-B0's 12
+   stride-1 shapes at 224 px (B = 256 and 13, f32 and bf16, act1 on and
+   off) and the Mahalanobis logits (#7, D = 1280: the path's batched query,
+   M = 1000 against 16 class slots of which 5 are real, then M = 256 and 13
+   against C = 5 and 10 with one padded class); each timed with CUDA events
+   at B = 256 and at #7's path shape, beside its bound, and repeated to
+   show that a second call gives the same bits;
+4. ViT path: the CLU-VE test protocol of the port's single-step learner on
    ViT-B/32 at full width (224 px, 12 layers, D = 768; random weights from
    ``--seed``), bf16 compute, proto head, batch 256, over two synthetic
    uint8 tasks made in memory (5 objects, about 8 context clips each, one
@@ -19,7 +24,10 @@ Phases, each of which passes or raises:
    learner's protocol loop and ``TestEvaluator`` to ``results.json``. The
    launch counters must show both kernels in every encoder layer of every
    extractor forward; one task is rerun with the plain versions and must
-   agree.
+   agree; task 0 is repeated 10 times, warm, for the median and range of
+   query frames/s and time to personalise; a ``torch.profiler`` trace of
+   one warm task gives the device time by kernel group and the device's
+   idle share.
 5. train path: the learner in ``--mode train_test`` on ViT-B/32 at full
    width, bf16 compute with f32 parameters, proto head, ``--with_lite
    --learn_extractor --num_lite_samples 16 --batch_size 256
@@ -31,8 +39,18 @@ Phases, each of which passes or raises:
    batch; the losses must be finite and every update must move the
    parameters; on one task, with the same injected subsets, the gradients
    through the kernels must agree with those through the plain versions.
+6. SimpleCNAPs path: phase 4's protocol, tasks and checks on
+   EfficientNet-B0 at full width (224 px, all 16 MBConv blocks, D = 1280)
+   with ``--adapt_features --classifier mahalanobis``: the set encoder, the
+   FiLM generator over every tagged BatchNorm and the Mahalanobis head.
+   Every BatchNorm's running statistics are calibrated on the first task's
+   frames after each weight draw (``calibrate_batchnorm`` through the
+   learner's ``after_init`` hook: uncalibrated random weights lose the
+   input within a few blocks). The launch counters must show #8 in all 12
+   stride-1 tails of every extractor forward and #7 in every predict call.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+The line before the last is ``{"kernels": [...]}`` (launches: kernels A and
+B from phase 4, #4 and #6 from phase 5, #7 and #8 from phase 6); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
 """
@@ -58,6 +76,17 @@ DEPTH = 12
 # rounding boundary rounds one ulp apart (2^-8..2^-7 of a value) and the
 # ulp travels on through the later products: two ulps, 2^-6.
 KERNEL_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -6, 2.0 ** -6)}
+# The depthwise tail (#8) and the Mahalanobis logits (#7) vs their plain
+# versions, against the largest value of the output (DW_TOL, MAHALANOBIS_TOL).
+# #8 in f32: summation order of the K*K taps only; bf16: an f32 affine that
+# lands on either side of a bf16 rounding boundary flips one ulp of an
+# activated input (2^-8..2^-7), which the taps carry into the sum before the
+# output rounds once more: 2^-6, as for the other bf16 kernels. #7 (f32
+# only): the quadratic form's D*D terms summed in another order, and they
+# cancel (the precisions have both signs off the diagonal): 1e-5 of the
+# largest logit.
+DW_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
+MAHALANOBIS_TOL = 1e-5
 # Backward kernels vs plain versions, per gradient tensor against its
 # largest value (the parameter gradients are sums over all B*S rows). f32:
 # summation order only; a sum over 12,800 rows of random-sign terms keeps
@@ -74,6 +103,8 @@ GRAD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
 # of each tensor's largest value.
 PATH_REL_TOL = 2.0 ** -4
 ARGMAX_AGREEMENT = 0.99
+# warm repeats of one task for the eval paths' median metrics
+PATH_REPEATS = 10
 
 KERNELS = {
     "fused_qkv_attention": ("orbit_tpu_torch/csrc/fused_qkv_attention.cu",
@@ -84,7 +115,17 @@ KERNELS = {
                                 "orbit_tpu/ops/tiny_attention.py:392"),
     "fused_mlp_block_bwd": ("orbit_tpu_torch/csrc/mlp_block_bwd.cu",
                             "orbit_tpu/ops/mlp_block.py:172"),
+    "mahalanobis_logits": ("orbit_tpu_torch/csrc/mahalanobis.cu",
+                           "orbit_tpu/ops/mahalanobis.py:47"),
+    "fused_dw_act": ("orbit_tpu_torch/csrc/depthwise.cu",
+                     "orbit_tpu/ops/depthwise.py:81"),
 }
+# EfficientNet-B0's stride-1 depthwise tails at 224 px, one extractor
+# forward: (H = W, C, K, act1) -> tails of that shape
+B0_DW_TAILS = {(112, 32, 3, False): 1, (56, 144, 3, True): 1, (28, 240, 5, True): 1,
+               (14, 480, 3, True): 2, (14, 480, 5, True): 1, (14, 672, 5, True): 2,
+               (7, 1152, 5, True): 3, (7, 1152, 3, True): 1}
+B0_DW_PER_FORWARD = sum(B0_DW_TAILS.values())  # 12
 # The least time one H100 SXM could take (NVIDIA's data sheet, dense peaks
 # at the full 700 W): 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s f32
 # outside them, 3.35 TB/s of device memory.
@@ -171,8 +212,30 @@ def bound(name: str, b: int, s: int, d: int, dtype_name: str):
         flops = 5 * 2 * rows * d * h
         nbytes = (e * (3 * rows * d + 2 * d * h) + 4 * (3 * d + h)
                   + 4 * (2 * d * h + h + 3 * d))
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / HBM_BYTES_PER_S
+    return _roofline(flops, nbytes, PEAK_FLOPS[dtype_name])
+
+
+def _roofline(flops: float, nbytes: float, peak: float):
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound_dw(n: int, h: int, c: int, k: int, dtype_name: str):
+    """The bound of one depthwise-tail call on (n, h, h, c): 2 K^2 FLOPs an
+    output on the CUDA cores (the f32 peak whatever the storage type);
+    the activation read and the output written once, f32 taps and affines."""
+    e = 2 if dtype_name == "bfloat16" else 4
+    return _roofline(2 * k * k * n * h * h * c, e * 2 * n * h * h * c + 4 * (k * k * c + 4 * c),
+                     PEAK_FLOPS["float32"])
+
+
+def bound_mahalanobis(m: int, d: int, c: int, real: int):
+    """The bound of one Mahalanobis-logits call with ``real`` of its ``c``
+    classes real (a padded class's logit is -1e30 whatever its statistics):
+    2 M D^2 f32 FLOPs a real class; the features and the real classes'
+    means and precisions read and all M x C logits written once."""
+    return _roofline(2 * m * d * d * real, 4 * (m * d + real * d + real * d * d + m * c),
+                     PEAK_FLOPS["float32"])
 
 
 def kernel_phase(torch, card: str) -> dict:
@@ -239,6 +302,110 @@ def kernel_phase(torch, card: str) -> dict:
                     rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], max_abs)
                     print(line)
     return rows
+
+
+def _repeat_check(torch, run, ours, where: str) -> None:
+    again = run(None)
+    torch.cuda.synchronize()
+    if not torch.equal(ours, again):
+        raise AssertionError(f"{where}: a second call gave other bits")
+
+
+def dw_kernel_phase(torch, card: str) -> dict:
+    """Phase 3, #8: the depthwise tail against its plain version at every
+    B0 stride-1 shape; returns its JSON row with the bf16 times summed over
+    the 12 tails of one extractor forward."""
+    from orbit_tpu_torch.ops import fused_dw_act
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    row = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    bound_by = set()
+    for (h, c, k, path_act1), count in B0_DW_TAILS.items():
+        for dtype_name in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype_name)
+            for b in (256, 13):
+                x = torch.randn(b, h, h, c, generator=g, device=dev).to(dt)
+                w = 0.3 * torch.randn(k, k, 1, c, generator=g, device=dev)
+                aff = [1 + 0.2 * torch.randn(c, generator=g, device=dev),
+                       0.2 * torch.randn(c, generator=g, device=dev),
+                       1 + 0.2 * torch.randn(c, generator=g, device=dev),
+                       0.2 * torch.randn(c, generator=g, device=dev)]
+                for act1 in (path_act1, not path_act1):
+                    def run(impl, act1=act1):
+                        return fused_dw_act(x, w, *aff, act1=act1, impl=impl)
+                    ours, ref = run(None), run("reference")
+                    torch.cuda.synchronize()
+                    where = f"fused_dw_act {h}x{h}x{c} K{k} act1={act1} {dtype_name} B={b}"
+                    max_abs = compare_grads([ours], [ref], DW_TOL[dtype_name], where)
+                    row["max_abs_err"] = max(row["max_abs_err"], max_abs)
+                    line = f"  {where}: max abs {max_abs:.3e}"
+                    if b == 256 and act1 == path_act1:
+                        _repeat_check(torch, run, ours, where)
+                        ms, plain_ms = cuda_ms(lambda: run(None)), cuda_ms(lambda: run("reference"))
+                        bound_ms, by = bound_dw(b, h, c, k, dtype_name)
+                        line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                                 f"{bound_ms:.4f} ms ({by}), x{count} a forward, same bits "
+                                 f"on a repeat")
+                        if dtype_name == "bfloat16":
+                            row["ms"] += count * ms
+                            row["plain_ms"] += count * plain_ms
+                            row["bound_ms"] += count * bound_ms
+                            bound_by.add(by)
+                    print(line)
+                del x
+    row["bound_by"] = "bytes" if bound_by == {"bytes"} else "operations"
+    print(f"  fused_dw_act, the 12 tails of one B0 forward at B=256 bf16 ({card}): kernel "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']})")
+    return row
+
+
+# #7's shapes as (C, real classes, [M, ...]); the first is the SimpleCNAPs
+# path's: each task's 5 videos x 200 frames in one batched predict call
+# against the episode's 16 class slots (pad_episode's MAX_WAY), 5 of them
+# real. Its row in the kernels line is taken there.
+MAHALANOBIS_SHAPES = ((16, 5, (1000,)), (5, 4, (256, 13)), (10, 9, (256, 13)))
+
+
+def mahalanobis_kernel_phase(torch, card: str) -> dict:
+    """Phase 3, #7: the Mahalanobis logits against their plain version."""
+    from orbit_tpu_torch.ops import mahalanobis_logits
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    d = 1280
+    row = {"max_abs_err": 0.0}
+    for c, real, ms_ in MAHALANOBIS_SHAPES:
+        # symmetric positive-definite precisions, as the head makes them
+        a = torch.randn(c, d, 2 * d, generator=g, device=dev) / math.sqrt(2 * d)
+        prec = torch.linalg.inv(a @ a.transpose(1, 2) + torch.eye(d, device=dev))
+        del a
+        means = 0.5 * torch.randn(c, d, generator=g, device=dev)
+        mask = (torch.arange(c, device=dev) < real).float()  # the rest padded
+        for m in ms_:
+            f = torch.randn(m, d, generator=g, device=dev)
+
+            def run(impl):
+                return mahalanobis_logits(f, means, prec, mask, 0.5, impl=impl)
+            ours, ref = run(None), run("reference")
+            torch.cuda.synchronize()
+            where = f"mahalanobis_logits M={m} D={d} C={c} ({real} real)"
+            if not bool((ours[:, real:] == -1e30).all()):
+                raise AssertionError(f"{where}: a padded class is not -1e30")
+            max_abs = compare_grads([ours[:, :real]], [ref[:, :real]], MAHALANOBIS_TOL, where)
+            row["max_abs_err"] = max(row["max_abs_err"], max_abs)
+            line = f"  {where}: max abs {max_abs:.3e}"
+            if m != 13:
+                _repeat_check(torch, run, ours, where)
+                ms, plain_ms = cuda_ms(lambda: run(None)), cuda_ms(lambda: run("reference"))
+                bound_ms, by = bound_mahalanobis(m, d, c, real)
+                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
+                         f"ms ({by}), same bits on a repeat ({card})")
+                if "ms" not in row:
+                    row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+            print(line)
+    return row
 
 
 def synthetic_tasks(num_tasks: int = 2, frame_size: int = 224,
@@ -336,115 +503,6 @@ class TaskQueue:
         return iter(self.tasks)
 
 
-def main_path_phase(torch, card: str, workdir: Path, extractor: str = "vit_b_32",
-                    frame_size: int = 224, video_frames: int = 200) -> dict:
-    """Phase 4: the port's CLU-VE test path (ViT-B/32 at 224 px unless told
-    otherwise), then one task rerun with the plain versions of the kernels."""
-    import numpy as np
-
-    from orbit_tpu_torch.data.episodes import pad_episode
-    from orbit_tpu_torch.kernels import build as kbuild
-    from orbit_tpu_torch.learners.single_step import SingleStepLearner
-    from orbit_tpu_torch.models.recognisers import SingleStepFewShotRecogniser
-    from orbit_tpu_torch.utils.args import parse_args
-
-    batch = 256
-    args = parse_args("single-step-learner", [
-        "--data_path", str(workdir / "data"), "--checkpoint_dir", str(workdir / "ckpt"),
-        "--mode", "test", "--feature_extractor", extractor, "--classifier", "proto",
-        "--compute_dtype", "bfloat16", "--batch_size", str(batch),
-        "--frame_size", str(frame_size), "--num_test_tasks", "1", "--seed", str(SEED)])
-    tasks = synthetic_tasks(frame_size=frame_size, video_frames=video_frames)
-    learner = SingleStepLearner(args, test_queue=TaskQueue(tasks))
-
-    # keep every logits tensor the protocol computes, to check them after
-    logits_seen = []
-    predict = SingleStepFewShotRecogniser.predict
-
-    def predict_kept(self, *args, **kwargs):
-        out = predict(self, *args, **kwargs)
-        logits_seen.append(out)
-        return out
-
-    SingleStepFewShotRecogniser.predict = predict_kept
-    kbuild.reset_launch_counts()
-    t0 = time.perf_counter()
-    try:
-        learner.run()
-        if learner.device.type == "cuda":
-            torch.cuda.synchronize()
-    finally:
-        SingleStepFewShotRecogniser.predict = predict
-    wall = time.perf_counter() - t0
-    launches = dict(kbuild.LAUNCHES)
-    if not logits_seen or not all(bool(torch.isfinite(t).all()) for t in logits_seen):
-        raise AssertionError("the protocol produced no logits, or non-finite ones")
-
-    results = Path(learner.test_evaluator.json_results_path)
-    if not results.exists():
-        raise AssertionError("results.json was not written")
-    saved = json.loads(results.read_text())
-    if sorted(saved) != sorted(t["task_id"] for t in tasks):
-        raise AssertionError(f"results.json users {sorted(saved)}")
-
-    # every extractor forward (one per chunk of <= batch frames) runs both
-    # kernels once per encoder layer; one untimed warm-up personalise first
-    eps = [pad_episode(t) for t in tasks]
-    ctx_chunks = [math.ceil(ep.context_clips.shape[0] / batch) for ep in eps]
-    query_chunks = [math.ceil(sum(v.shape[0] for v in ep.video_frames) / batch) for ep in eps]
-    expected_chunks = ctx_chunks[0] + sum(ctx_chunks) + sum(query_chunks)
-    forwards = learner.recogniser.extractor.forward_calls
-    if forwards != expected_chunks:
-        raise AssertionError(f"{forwards} extractor forwards, expected {expected_chunks}")
-    for name in ("fused_qkv_attention", "fused_mlp_block"):
-        if launches[name] != DEPTH * forwards:
-            raise AssertionError(f"{name}: {launches[name]} launches, expected "
-                                 f"{DEPTH} x {forwards}")
-
-    timings = learner.test_timings
-    per_frame = statistics.mean(timings["inference_per_frame"])
-    personalise = statistics.mean(timings["personalise"])
-    query_frames = sum(int(m.sum()) for ep in eps for m in ep.video_masks)
-    print(f"main path (card: {card}): {extractor} {frame_size}px bf16 proto, batch {batch}, "
-          f"{len(tasks)} tasks, {query_frames} query frames, {forwards} extractor "
-          f"forwards, wall {wall:.2f} s")
-    print(f"  query frames/s: {1.0 / per_frame:.1f}; time to personalise: "
-          f"{personalise * 1e3:.2f} ms per task ({card})")
-
-    # rerun task 0 with the plain versions; the same frames through the kernels
-    rec = learner.recogniser
-    ep = eps[0]
-    dev = learner.device
-    ctx = torch.from_numpy(ep.context_clips).to(dev)
-    labels = torch.from_numpy(ep.context_labels.astype(np.int64)).to(dev)
-    mask = torch.from_numpy(ep.context_mask).to(dev)
-    class_mask = torch.from_numpy(ep.class_mask).to(dev)
-    query = torch.from_numpy(np.concatenate(ep.video_frames)[:, None]).to(dev)
-    real = np.concatenate([m > 0 for m in ep.video_masks])
-    out = {}
-    for impl in (None, "reference"):
-        rec.extractor.impl = impl
-        with torch.inference_mode():
-            state = rec.personalise(ctx, labels, mask, ep.num_classes)
-            out[impl] = (rec.embed_clips(ctx), rec.predict(state, query, class_mask))
-    rec.extractor.impl = None
-    (fk, lk), (fr, lr) = out[None], out["reference"]
-    if not (torch.isfinite(lk).all() and torch.isfinite(fk).all()):
-        raise AssertionError("non-finite features or logits on the kernel path")
-    present = class_mask.bool()  # padded classes hold -1e30 on both sides
-    for what, a, b in (("features", fk, fr),
-                       ("logits", lk[:, present], lr[:, present])):
-        scale = float(b.abs().max())
-        max_abs, max_rel = compare(a, b, 0.0, PATH_REL_TOL * scale, f"main path {what}")
-        print(f"  kernels vs plain, task 0 {what}: max abs {max_abs:.3e}, "
-              f"max rel {max_rel:.3e}")
-    agree = float((lk.argmax(-1) == lr.argmax(-1)).cpu().numpy()[real].mean())
-    print(f"  argmax agreement on {int(real.sum())} real query frames: {agree:.4f}")
-    if agree < ARGMAX_AGREEMENT:
-        raise AssertionError(f"argmax agreement {agree:.4f} < {ARGMAX_AGREEMENT}")
-    return launches
-
-
 def train_path_phase(torch, card: str, workdir: Path, extractor: str = "vit_b_32",
                      frame_size: int = 224, target_shots: int = 60) -> dict:
     """Phase 5: the port's LITE meta-training path (ViT-B/32 at 224 px
@@ -499,7 +557,7 @@ def train_path_phase(torch, card: str, workdir: Path, extractor: str = "vit_b_32
                 for c in forwards_in]
     grads, fixed, step_loss = {}, {}, {}
     for impl in (None, "reference"):
-        rec.extractor.impl = impl
+        rec.impl = impl
         rec.zero_grad(set_to_none=True)
         step_loss[impl] = float(step(episode, grad_idxs=subsets)[0])
         grads[impl] = [p.grad.clone() for p in rec.extractor.parameters()]
@@ -507,7 +565,7 @@ def train_path_phase(torch, card: str, workdir: Path, extractor: str = "vit_b_32
         sum((rec.embed_clips(c, with_grad=True) * u).sum()
             for c, u in zip(forwards_in, upstream)).backward()
         fixed[impl] = [p.grad.clone() for p in rec.extractor.parameters()]
-    rec.extractor.impl = None
+    rec.impl = None
     rec.zero_grad(set_to_none=True)
     step_worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
                      for a, b in zip(grads[None], grads["reference"]))
@@ -596,6 +654,203 @@ def train_path_phase(torch, card: str, workdir: Path, extractor: str = "vit_b_32
     return launches
 
 
+def device_breakdown(torch, fn, card: str) -> None:
+    """Run ``fn`` (one warm task) under ``torch.profiler`` and print the
+    device time by kernel group and the device's idle share (1 - the
+    kernels' summed time over the host's wall time of the region)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    groups = (("A fused_qkv_attention", r"fused_qkv_attention"),
+              ("B fused_mlp_block", r"fused_mlp_block"),
+              ("#8 fused_dw_act", r"fused_dw_kernel"),
+              ("#7 mahalanobis_logits", r"mahalanobis_(partial|finish)"),
+              ("linalg.inv (MAGMA LU, swaps, solves)",
+               r"getrf|getri|getrs|trsm|laswp|swap_kernel|computecolumn|displace_pointers|"
+               r"magma|cusolver|_batched"),
+              ("convolutions (cuDNN, ATen)", r"conv|cudnn|fprop|implicit|dgrad|wgrad|"
+                                             r"winograd|nchwToNhwc|nhwcToNchw"),
+              ("matmuls (cuBLAS)", r"gemm|cutlass|gemv|nvjet"),
+              ("memcpy and memset", r"[Mm]emcpy|[Mm]emset"))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    totals, names = {}, {}
+    for evt in prof.key_averages():
+        # kernels and copies only: an operator's own entry repeats the
+        # device time of the kernels it launched
+        us = evt.self_device_time_total
+        if evt.device_type != torch.autograd.DeviceType.CUDA or us <= 0:
+            continue
+        group = next((g for g, pat in groups if re.search(pat, evt.key)), "other (elementwise, "
+                     "reductions, casts)")
+        totals[group] = totals.get(group, 0.0) + us / 1e3
+        names[evt.key] = names.get(evt.key, 0.0) + us / 1e3
+    busy = sum(totals.values())
+    if busy <= 0:
+        print(f"  trace ({card}): the profiler recorded no device time (not measured)")
+        return
+    print(f"  trace of one warm task ({card}): wall {wall_ms:.2f} ms, device busy "
+          f"{busy:.2f} ms, idle share {100 * (1 - busy / wall_ms):.1f}%")
+    for group, ms in sorted(totals.items(), key=lambda kv: -kv[1]):
+        print(f"    {group}: {ms:.3f} ms ({100 * ms / busy:.1f}%)")
+    for name, ms in sorted(names.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"      {ms:.3f} ms  {name[:110]}")
+
+
+def eval_path_phase(torch, card: str, workdir: Path, label: str, flags: list,
+                    per_forward: dict, calibrate: bool = False) -> dict:
+    """Phases 4 and 6: the port's CLU-VE test protocol through the learner
+    (bf16, batch 256, 224 px, ``flags`` naming the model) on two synthetic
+    tasks, to ``results.json``. Every extractor forward (one per chunk of at
+    most 256 frames, the untimed warm-up personalise included) must launch
+    each kernel of ``per_forward`` that many times, and the Mahalanobis
+    kernel must run once per predict call. ``calibrate`` sets the
+    EfficientNet's BatchNorm statistics from the first task's frames after
+    each weight draw. Then task 0 is rerun through the kernels and through
+    their plain versions, repeated warm for the metrics' median, and traced
+    once."""
+    import numpy as np
+
+    from orbit_tpu_torch.data.episodes import pad_episode
+    from orbit_tpu_torch.kernels import build as kbuild
+    from orbit_tpu_torch.learners.single_step import SingleStepLearner
+    from orbit_tpu_torch.models.backbones.efficientnet import calibrate_batchnorm
+    from orbit_tpu_torch.models.recognisers import SingleStepFewShotRecogniser
+    from orbit_tpu_torch.utils.args import parse_args
+
+    batch = 256
+    args = parse_args("single-step-learner", [
+        "--data_path", str(workdir / "data"), "--checkpoint_dir", str(workdir / "ckpt"),
+        "--mode", "test", *flags, "--compute_dtype", "bfloat16", "--batch_size", str(batch),
+        "--frame_size", "224", "--num_test_tasks", "1", "--seed", str(SEED)])
+    tasks = synthetic_tasks()
+    eps = [pad_episode(t) for t in tasks]
+    after_init = None
+    if calibrate:
+        frames = torch.from_numpy(np.concatenate(
+            [eps[0].context_clips[:, 0]] + [v[:40] for v in eps[0].video_frames]))
+
+        def after_init(rec):
+            # every weight draw (the test protocol draws its own) is calibrated
+            calibrate_batchnorm(rec.extractor,
+                                rec._maybe_normalize(frames.to(rec.pixel_mean.device)))
+    learner = SingleStepLearner(args, test_queue=TaskQueue(tasks), after_init=after_init)
+    dev = learner.device
+
+    # keep every logits tensor the protocol computes, to check them after
+    logits_seen = []
+    predict = SingleStepFewShotRecogniser.predict
+
+    def predict_kept(self, *a, **kw):
+        out = predict(self, *a, **kw)
+        logits_seen.append(out)
+        return out
+
+    SingleStepFewShotRecogniser.predict = predict_kept
+    kbuild.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        learner.run()
+        torch.cuda.synchronize()
+    finally:
+        SingleStepFewShotRecogniser.predict = predict
+    wall = time.perf_counter() - t0
+    launches = dict(kbuild.LAUNCHES)
+    if not logits_seen or not all(bool(torch.isfinite(t).all()) for t in logits_seen):
+        raise AssertionError("the protocol produced no logits, or non-finite ones")
+    results = Path(learner.test_evaluator.json_results_path)
+    if not results.exists():
+        raise AssertionError("results.json was not written")
+    saved = json.loads(results.read_text())
+    if sorted(saved) != sorted(t["task_id"] for t in tasks):
+        raise AssertionError(f"results.json users {sorted(saved)}")
+
+    rec = learner.recogniser
+    ctx_chunks = [math.ceil(ep.context_clips.shape[0] / batch) for ep in eps]
+    query_chunks = [math.ceil(sum(v.shape[0] for v in ep.video_frames) / batch) for ep in eps]
+    expected_chunks = ctx_chunks[0] + sum(ctx_chunks) + sum(query_chunks)
+    forwards = rec.extractor.forward_calls
+    if forwards != expected_chunks:
+        raise AssertionError(f"{forwards} extractor forwards, expected {expected_chunks}")
+    for name, count in per_forward.items():
+        if launches[name] != count * forwards:
+            raise AssertionError(f"{name}: {launches[name]} launches, expected "
+                                 f"{count} x {forwards} extractor forwards")
+    if rec.classifier == "mahalanobis" and launches["mahalanobis_logits"] != len(logits_seen):
+        raise AssertionError(f"mahalanobis_logits: {launches['mahalanobis_logits']} launches "
+                             f"for {len(logits_seen)} predict calls")
+
+    timings = learner.test_timings
+    per_frame = statistics.mean(timings["inference_per_frame"])
+    personalise = statistics.mean(timings["personalise"])
+    query_frames = sum(int(m.sum()) for ep in eps for m in ep.video_masks)
+    counts = ", ".join(f"{n} {launches[n]}" for n in KERNELS if launches[n])
+    print(f"{label} (card: {card}): 224px bf16, batch {batch}, {len(tasks)} tasks, "
+          f"{query_frames} query frames, {forwards} extractor forwards, {len(logits_seen)} "
+          f"predict calls, wall {wall:.2f} s; launches: {counts}")
+    print(f"  query frames/s: {1.0 / per_frame:.1f}; time to personalise: "
+          f"{personalise * 1e3:.2f} ms per task ({card})")
+
+    # task 0 again through the kernels and through their plain versions
+    ep = eps[0]
+    ctx = torch.from_numpy(ep.context_clips).to(dev)
+    labels = torch.from_numpy(ep.context_labels.astype(np.int64)).to(dev)
+    mask = torch.from_numpy(ep.context_mask).to(dev)
+    class_mask = torch.from_numpy(ep.class_mask).to(dev)
+    query = torch.from_numpy(np.concatenate(ep.video_frames)[:, None]).to(dev)
+    real = np.concatenate([m > 0 for m in ep.video_masks])
+    out = {}
+    for impl in (None, "reference"):
+        rec.impl = impl
+        with torch.inference_mode():
+            state = rec.personalise(ctx, labels, mask, ep.num_classes)
+            out[impl] = (rec.embed_clips(ctx, film=state["film"]),
+                         rec.predict(state, query, class_mask))
+    rec.impl = None
+    (fk, lk), (fr, lr) = out[None], out["reference"]
+    if not (torch.isfinite(lk).all() and torch.isfinite(fk).all()):
+        raise AssertionError("non-finite features or logits on the kernel path")
+    present = class_mask.bool()  # padded classes hold -1e30 on both sides
+    for what, a, b in (("features", fk, fr), ("logits", lk[:, present], lr[:, present])):
+        max_abs, max_rel = compare(a, b, 0.0, PATH_REL_TOL * float(b.abs().max()),
+                                   f"{label} {what}")
+        print(f"  kernels vs plain, task 0 {what}: max abs {max_abs:.3e}, max rel {max_rel:.3e}")
+    agree = float((lk.argmax(-1) == lr.argmax(-1)).cpu().numpy()[real].mean())
+    print(f"  argmax agreement on {int(real.sum())} real query frames: {agree:.4f}")
+    if agree < ARGMAX_AGREEMENT:
+        raise AssertionError(f"argmax agreement {agree:.4f} < {ARGMAX_AGREEMENT}")
+
+    # the two metrics over warm repeats of task 0, timed as the protocol
+    # times them (each call ended by a sync, the logits copied to the host)
+    seconds = {"personalise": [], "predict": []}
+    for _ in range(PATH_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = learner.personalise_fn(ctx, labels, mask, class_mask)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        learner.predict_fn(state, query, class_mask).cpu()
+        t2 = time.perf_counter()
+        seconds["personalise"].append(t1 - t0)
+        seconds["predict"].append(t2 - t1)
+    fps = [int(real.sum()) / t for t in seconds["predict"]]
+    pers = [1e3 * t for t in seconds["personalise"]]
+    print(f"  task 0 repeated {PATH_REPEATS}x, warm: query frames/s median "
+          f"{statistics.median(fps):.1f} ({min(fps):.1f}-{max(fps):.1f}); time to personalise "
+          f"median {statistics.median(pers):.2f} ms ({min(pers):.2f}-{max(pers):.2f}) ({card})")
+
+    def warm_task():
+        learner.predict_fn(learner.personalise_fn(ctx, labels, mask, class_mask), query,
+                           class_mask)
+    device_breakdown(torch, warm_task, card)
+    return launches
+
+
 def main() -> int:
     if not (REPO / "orbit_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from the root of an orbit-tpu checkout "
@@ -625,23 +880,39 @@ def main() -> int:
 
     # phase 3: kernels vs plain versions
     rows = kernel_phase(torch, card)
+    rows["fused_dw_act"] = dw_kernel_phase(torch, card)
+    rows["mahalanobis_logits"] = mahalanobis_kernel_phase(torch, card)
 
-    # phases 4 and 5: the eval path, then the train path, each read alone
+    # phases 4, 5 and 6: the ViT eval path, the ViT train path and the
+    # SimpleCNAPs path, each read alone
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        eval_launches = main_path_phase(torch, card, Path(tmp) / "eval")
-        train_launches = train_path_phase(torch, card, Path(tmp) / "train")
-    for path, launches in (("eval", eval_launches), ("train", train_launches)):
-        unused = [n for n in KERNELS if launches[n] < 1 and (path == "train" or
-                                                             not n.endswith("_bwd"))]
+        paths = {
+            "eval": eval_path_phase(
+                torch, card, Path(tmp) / "eval", "ViT-B/32 proto path",
+                ["--feature_extractor", "vit_b_32", "--classifier", "proto"],
+                {"fused_qkv_attention": DEPTH, "fused_mlp_block": DEPTH}),
+            "train": train_path_phase(torch, card, Path(tmp) / "train"),
+            "simplecnaps": eval_path_phase(
+                torch, card, Path(tmp) / "simplecnaps",
+                "EfficientNet-B0 SimpleCNAPs path (FiLM, Mahalanobis head)",
+                ["--feature_extractor", "efficientnet_b0", "--adapt_features",
+                 "--classifier", "mahalanobis"],
+                {"fused_dw_act": B0_DW_PER_FORWARD}, calibrate=True)}
+    # the path whose launches each kernel's row reports
+    path_of = {"fused_qkv_attention": "eval", "fused_mlp_block": "eval",
+               "fused_qkv_attention_bwd": "train", "fused_mlp_block_bwd": "train",
+               "mahalanobis_logits": "simplecnaps", "fused_dw_act": "simplecnaps"}
+    for path, launches in paths.items():
+        needed = [n for n, p in path_of.items() if p == path or (path == "train" and p == "eval")]
+        unused = [n for n in needed if launches[n] < 1]
         if unused:
             raise AssertionError(f"not launched on the {path} path: {unused}")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        # the forward kernels' count is the eval path's, the backward
-        # kernels' the train path's; no single PyTorch call computes any of
-        # the four functions, so there is no library time
-        launches = (train_launches if name.endswith("_bwd") else eval_launches)[name]
+        # no single PyTorch call computes any of the six functions, so there
+        # is no library time
+        launches = paths[path_of[name]][name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": rows[name]["max_abs_err"],

@@ -32,11 +32,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel name -> launches made by its wrapper (plain integers; reset with
 # reset_launch_counts before a run whose launches are to be counted)
 LAUNCHES = {"fused_qkv_attention": 0, "fused_mlp_block": 0,
-            "fused_qkv_attention_bwd": 0, "fused_mlp_block_bwd": 0}
+            "fused_qkv_attention_bwd": 0, "fused_mlp_block_bwd": 0,
+            "mahalanobis_logits": 0, "fused_dw_act": 0}
 
 # rows per partial sum of the backward kernels' column sums (kSumRows in
 # csrc/common.cuh): their workspace holds ceil(rows / COLSUM_ROWS) x N floats
 COLSUM_ROWS = 256
+# columns of D per partial sum of the Mahalanobis kernel (kTN in
+# csrc/mahalanobis.cu): its workspace holds C x ceil(D / MAHALANOBIS_TILE_N) x M
+MAHALANOBIS_TILE_N = 64
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -53,6 +57,12 @@ _SIGNATURES = {
     # dln_g, dln_b, dw1, db1, dw2, db2, rows, D, hidden, eps, stream
     "orbit_fused_mlp_block_bwd_f32": [_P] * 20 + [_I, _I, _I, _F, _P],
     "orbit_fused_mlp_block_bwd_bf16": [_P] * 20 + [_I, _I, _I, _F, _P],
+    # f, mu, P, class_mask, partial, out, M, D, C, scale, stream
+    "orbit_mahalanobis_logits": [_P] * 6 + [_I, _I, _I, _F, _P],
+    # x, taps, a1, b1, a2, b2, out, N, H, W, C, K, pad_top, pad_left, act1,
+    # act2, stream
+    "orbit_fused_dw_f32": [_P] * 7 + [_I] * 9 + [_P],
+    "orbit_fused_dw_bf16": [_P] * 7 + [_I] * 9 + [_P],
 }
 
 _lock = threading.Lock()

@@ -23,9 +23,13 @@ recogniser. Differences from the JAX learner:
 - the MACs counter is not ported yet: results carry no
   ``task_macs_to_personalise`` and the log says so.
 Not ported yet, and refused with an error: ``--data_parallel``/
-``--task_parallel`` > 1, ``--adapt_features``, heads other than
-``proto``/``proto_cosine``, ``--profile_dir`` and
-``--pretrained_extractor_path``.
+``--task_parallel`` > 1, ``--profile_dir``, ``--pretrained_extractor_path``,
+the ``linear`` head, FiLM on the ViTs, and in the train modes
+``--adapt_features``, the ``versa``/``mahalanobis`` heads and
+``--learn_extractor`` on an EfficientNet (FiLM meta-training and masked
+BatchNorm statistics are a later slice). ``--mode test`` runs CNAPs
+(``--adapt_features --classifier versa``) and SimpleCNAPs
+(``--adapt_features --classifier mahalanobis``) on the EfficientNets.
 """
 from __future__ import annotations
 
@@ -62,10 +66,19 @@ def check_ported(args) -> None:
         refused.append(f"--data_parallel {args.data_parallel}")
     if getattr(args, "task_parallel", 1) > 1:
         refused.append(f"--task_parallel {args.task_parallel}")
-    if args.adapt_features:
-        refused.append("--adapt_features")
     if args.classifier not in CONFIGURE:
         refused.append(f"--classifier {args.classifier}")
+    effnet = args.feature_extractor.startswith("efficientnet")
+    if args.adapt_features and not effnet:
+        refused.append(f"--adapt_features on {args.feature_extractor}")
+    if "train" in args.mode:
+        later = " (a later slice: FiLM meta-training, masked BatchNorm statistics)"
+        if args.adapt_features:
+            refused.append(f"--adapt_features in --mode {args.mode}{later}")
+        if args.classifier in ("versa", "mahalanobis"):
+            refused.append(f"--classifier {args.classifier} in --mode {args.mode}{later}")
+        if args.learn_extractor and effnet:
+            refused.append(f"--learn_extractor on {args.feature_extractor}{later}")
     for flag in ("profile_dir", "pretrained_extractor_path"):
         if getattr(args, flag, None):
             refused.append(f"--{flag}")
@@ -89,12 +102,16 @@ class SingleStepLearner:
     to use instead of the ones the data loader builds from ``--data_path``
     (anything with ``get_tasks()``, ``num_local_tasks()``, ``num_users`` and
     ``loader``); the loader is not built when any is given. ``device``:
-    see :func:`select_device`."""
+    see :func:`select_device`. ``after_init``: a callable given the
+    recogniser after every weight draw (the constructor's and each test
+    run's fresh init), before anything runs on it; e.g. to calibrate the
+    BatchNorm statistics of random EfficientNet weights."""
 
     def __init__(self, args, train_queue=None, validation_queue=None,
-                 test_queue=None, device=None):
+                 test_queue=None, device=None, after_init=None):
         check_ported(args)
         self.args = args
+        self.after_init = after_init
         self.device = select_device(args, device)
         (self.checkpoint_dir, self.logfile, self.checkpoint_path_validation,
          self.checkpoint_path_final) = get_log_files(args.checkpoint_dir, args.model_path)
@@ -186,6 +203,8 @@ class SingleStepLearner:
             frame_norm_method=args.frame_norm_method,
             frame_size=args.frame_size,
         ).to(self.device).init(args.seed)
+        if self.after_init is not None:
+            self.after_init(self.recogniser)
         # reference: freeze_extractor (model/feature_extractors.py:81-87)
         self.recogniser.extractor.requires_grad_(bool(args.learn_extractor))
         self.personalise_fn, self.predict_fn = build_eval_fns(self.recogniser)

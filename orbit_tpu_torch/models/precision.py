@@ -5,13 +5,19 @@ and ``orbit_tpu/learners/single_step.py:349-353``).
   GEMMs may not reduce in reduced precision. The heads compute in f32 and
   must not silently drop to TF32 (CLAUDE.md "Design invariants").
 - Under ``--compute_dtype bfloat16`` every floating extractor parameter is
-  stored in bf16, as the JAX package casts every ViT extractor leaf; the
-  LayerNorm and bias vectors are upcast to f32 where they are used (kernel B
-  receives them in f32, as orbit_tpu mlp_block.py:145-147 does).
+  stored in bf16, as the JAX package casts its extractor leaves, except the
+  BatchNorm scale and bias, which stay f32 (orbit_tpu/models/precision.py:
+  29-47): the eval affine is folded in f32, and the FiLM overrides and the
+  fused depthwise op's affines depend on that. The running statistics are
+  buffers and stay f32 too. The ViT's LayerNorm and bias vectors are upcast
+  to f32 where they are used (kernel B receives them in f32, as orbit_tpu
+  mlp_block.py:145-147 does).
 """
 from __future__ import annotations
 
 import torch
+
+from orbit_tpu_torch.models.backbones.masked_bn import MaskedBatchNorm
 
 
 def configure_matmul_precision() -> None:
@@ -30,10 +36,13 @@ def compute_dtype(name: str) -> torch.dtype:
 def cast_extractor_params(extractor: torch.nn.Module,
                           dtype=torch.bfloat16) -> torch.nn.Module:
     """Store every floating parameter of ``extractor`` in ``dtype`` (in
-    place). The ViTs have no BatchNorm, whose affine the JAX policy keeps in
-    f32; no other leaf is exempt."""
+    place), except the BatchNorm scale and bias, which stay f32; buffers
+    (the BatchNorm running statistics) are not touched."""
     configure_matmul_precision()
-    for p in extractor.parameters():
-        if p.is_floating_point():
-            p.data = p.data.to(dtype)
+    for module in extractor.modules():
+        if isinstance(module, MaskedBatchNorm):
+            continue
+        for p in module.parameters(recurse=False):
+            if p.is_floating_point():
+                p.data = p.data.to(dtype)
     return extractor

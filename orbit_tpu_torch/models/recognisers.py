@@ -19,8 +19,15 @@ where the JAX package rematerialises its chunks with ``jax.checkpoint``
 (orbit_tpu/models/recognisers.py:200-205), so activation memory stays one
 chunk's. The ViTs have no BatchNorm, so train mode changes no forward.
 
-Not ported yet: FiLM adaptation (``adapt_features``) and the
-``linear``/``versa``/``mahalanobis`` heads.
+FiLM (``adapt_features``, CNAPs and SimpleCNAPs; reference:
+few_shot_recognisers.py:313-326,361-386,439-451): ``personalise`` first
+embeds every context frame with the DeepSets set encoder (chunked at
+``batch_size``, f32), takes the masked mean over the real context frames,
+generates the FiLM values from it, and hands them to every extractor call
+of the task as per-call overrides; the task state is ``{"film", "head"}``.
+FiLM runs on the EfficientNets in eval mode; FiLM on the ViTs and FiLM
+meta-training are not ported yet and raise. Not ported either: the
+``linear`` head (the FineTuner's).
 """
 from __future__ import annotations
 
@@ -33,8 +40,11 @@ from torch.utils.checkpoint import checkpoint
 from orbit_tpu_torch.data.index import NORMALIZE_STATS
 from orbit_tpu_torch.models import heads as heads_lib
 from orbit_tpu_torch.models.backbones import create_feature_extractor
+from orbit_tpu_torch.models.film import (FilmParameterGenerator, film_values_from_initial,
+                                         get_initial_film_values)
 from orbit_tpu_torch.models.poolers import mean_pool_clips
 from orbit_tpu_torch.models.precision import configure_matmul_precision
+from orbit_tpu_torch.models.set_encoder import SetEncoder
 
 TaskState = Dict[str, Any]
 
@@ -48,32 +58,57 @@ class SingleStepFewShotRecogniser(nn.Module):
                  logit_scale: float = 1.0, dtype=torch.float32,
                  frame_norm_method: str = "imagenet", frame_size: int = 224):
         super().__init__()
-        if adapt_features:
-            raise NotImplementedError("adapt_features (FiLM): not ported yet")
         if classifier not in heads_lib.CONFIGURE:
             raise NotImplementedError(f"classifier {classifier!r}: not ported yet "
                                       f"(ported: {tuple(heads_lib.CONFIGURE)})")
         configure_matmul_precision()
+        self.adapt_features = adapt_features
         self.classifier = classifier
         self.clip_length = clip_length
         self.batch_size = batch_size
         self.logit_scale = logit_scale
         self.dtype = dtype
-        self.extractor, self.output_size = create_feature_extractor(
+        self.extractor, self.output_size, film_spec = create_feature_extractor(
             feature_extractor_name, frame_size=frame_size, dtype=dtype)
+        self.film_spec = tuple(film_spec) if adapt_features else ()
+        if adapt_features:
+            if not film_spec:
+                raise NotImplementedError(f"adapt_features (FiLM) on {feature_extractor_name}: "
+                                          f"not ported yet (ported: the EfficientNets)")
+            self.set_encoder = SetEncoder()
+            self.film_generator = FilmParameterGenerator(self.film_spec)
+        if classifier == "versa":
+            self.versa = heads_lib.VersaProcessors(self.output_size)
         stats = NORMALIZE_STATS[frame_norm_method]
         self.register_buffer("pixel_mean", torch.tensor(stats["mean"]), persistent=False)
         self.register_buffer("pixel_std", torch.tensor(stats["std"]), persistent=False)
         super().train(False)
 
+    @property
+    def impl(self) -> Optional[str]:
+        """The route of every op of the model, the extractor's and the
+        head's: None (each op's kernel on a CUDA tensor, its plain version
+        on a CPU tensor) or "reference" (the plain versions on any
+        device)."""
+        return self.extractor.impl
+
+    @impl.setter
+    def impl(self, value: Optional[str]) -> None:
+        self.extractor.impl = value
+
     def init(self, seed: int) -> "SingleStepFewShotRecogniser":
-        """Draw the extractor's parameters from a generator seeded with
-        ``seed`` (on the CPU, so one seed gives the same weights on every
-        device), then move them to the module's device."""
+        """Draw the parameters (extractor, and set encoder, FiLM generator
+        and Versa processors where the model has them) from a generator
+        seeded with ``seed`` (on the CPU, so one seed gives the same weights
+        on every device), then move them to the module's device."""
         device = self.pixel_mean.device
         g = torch.Generator().manual_seed(seed)
-        self.extractor.to("cpu").reset_parameters(g)
-        self.extractor.to(device)
+        self.to("cpu")
+        self.extractor.reset_parameters(g)
+        for name in ("set_encoder", "film_generator", "versa"):
+            if hasattr(self, name):
+                getattr(self, name).reset_parameters(g)
+        self.to(device)
         return self
 
     # -------------------------------------------------- feature extraction ----
@@ -85,50 +120,88 @@ class SingleStepFewShotRecogniser(nn.Module):
         x = frames.float() / 255.0
         return ((x - self.pixel_mean) / self.pixel_std).to(self.dtype)
 
-    def _embed_chunk(self, frames: torch.Tensor) -> torch.Tensor:
-        return self.extractor(self._maybe_normalize(frames))
+    def _embed_chunk(self, frames: torch.Tensor, film=None) -> torch.Tensor:
+        x = self._maybe_normalize(frames)
+        return self.extractor(x) if film is None else self.extractor(x, film)
 
-    def embed_frames(self, frames: torch.Tensor, with_grad: bool = False) -> torch.Tensor:
+    def embed_frames(self, frames: torch.Tensor, with_grad: bool = False,
+                     film=None) -> torch.Tensor:
         """(N, H, W, 3) -> (N, D) f32 features, ``batch_size`` frames at a
-        time. ``with_grad=False`` records no graph; with gradients and more
-        than one chunk, each chunk is recomputed in the backward
-        (``torch.utils.checkpoint``)."""
+        time, under the FiLM values ``film`` if given. ``with_grad=False``
+        records no graph; with gradients and more than one chunk, each chunk
+        is recomputed in the backward (``torch.utils.checkpoint``)."""
         n, b = frames.shape[0], self.batch_size
         chunks = [frames[i:i + b] for i in range(0, n, b)]
         with torch.set_grad_enabled(with_grad and torch.is_grad_enabled()):
             if torch.is_grad_enabled() and len(chunks) > 1:
-                feats = [checkpoint(self._embed_chunk, c, use_reentrant=False)
+                feats = [checkpoint(self._embed_chunk, c, film, use_reentrant=False)
                          for c in chunks]
             else:
-                feats = [self._embed_chunk(c) for c in chunks]
+                feats = [self._embed_chunk(c, film) for c in chunks]
             return torch.cat(feats).float()
 
-    def embed_clips(self, clips: torch.Tensor, with_grad: bool = False) -> torch.Tensor:
+    def embed_clips(self, clips: torch.Tensor, with_grad: bool = False,
+                    film=None) -> torch.Tensor:
         """(N, T, H, W, 3) -> (N, D): frame features mean-pooled per clip."""
         n, t = clips.shape[:2]
-        feats = self.embed_frames(clips.reshape(n * t, *clips.shape[2:]), with_grad)
+        feats = self.embed_frames(clips.reshape(n * t, *clips.shape[2:]), with_grad, film)
         return mean_pool_clips(feats, t)
+
+    # ------------------------------------------------------ set encoding ----
+    def task_embedding(self, context_clips: torch.Tensor,
+                       clip_mask: torch.Tensor) -> torch.Tensor:
+        """Masked mean of the set encoder's 64-d reps over the real context
+        frames, ``batch_size`` frames at a time (reference:
+        _get_task_embedding_in_batches, few_shot_recognisers.py:361-386)."""
+        n, t = context_clips.shape[:2]
+        frames = context_clips.reshape(n * t, *context_clips.shape[2:])
+        b = self.batch_size
+        reps = torch.cat([self.set_encoder(self._maybe_normalize(frames[i:i + b]))
+                          for i in range(0, n * t, b)])
+        frame_mask = clip_mask.float().repeat_interleave(t)
+        total = torch.clamp(frame_mask.sum(), min=1.0)
+        return (reps * frame_mask[:, None]).sum(dim=0) / total
+
+    def generate_film(self, task_embedding: torch.Tensor):
+        """Task embedding -> (FiLM values by dotted leaf name, L2 term of
+        the regularisers) (reference: _generate_film_params,
+        few_shot_recognisers.py:439-451)."""
+        generated, l2 = self.film_generator(task_embedding)
+        initial = get_initial_film_values(self.extractor, self.film_spec)
+        return film_values_from_initial(initial, generated), l2
 
     # ----------------------------------------------------------- heads ----
     def configure_head(self, context_features, context_labels, sample_mask,
                        num_classes: int) -> Dict[str, torch.Tensor]:
         return heads_lib.CONFIGURE[self.classifier](
-            context_features, context_labels, sample_mask, num_classes)
+            context_features, context_labels, sample_mask, num_classes,
+            getattr(self, "versa", None))
 
     def head_logits(self, head, features,
                     class_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        kwargs = {"impl": self.impl} if self.classifier == "mahalanobis" else {}
         return heads_lib.PREDICT[self.classifier](
-            head, features, logit_scale=self.logit_scale, class_mask=class_mask)
+            head, features, logit_scale=self.logit_scale, class_mask=class_mask, **kwargs)
 
     # ----------------------------------------------------- personalise ----
     def personalise(self, context_clips, context_labels, context_mask,
                     num_classes: int, with_grad: bool = False) -> TaskState:
-        feats = self.embed_clips(context_clips, with_grad)
-        return {"head": self.configure_head(feats, context_labels, context_mask,
+        """Task embedding -> FiLM (when ``adapt_features``) -> context
+        features -> head (reference: personalise,
+        few_shot_recognisers.py:313-326)."""
+        film = None
+        if self.adapt_features:
+            if with_grad:
+                raise NotImplementedError("FiLM meta-training: not ported yet, a "
+                                          "later slice of the port")
+            film, _ = self.generate_film(self.task_embedding(context_clips, context_mask))
+        feats = self.embed_clips(context_clips, with_grad, film)
+        return {"film": film,
+                "head": self.configure_head(feats, context_labels, context_mask,
                                             num_classes)}
 
     def predict(self, task_state: TaskState, clips,
                 class_mask: Optional[torch.Tensor] = None,
                 with_grad: bool = False) -> torch.Tensor:
-        feats = self.embed_clips(clips, with_grad)
+        feats = self.embed_clips(clips, with_grad, task_state["film"])
         return self.head_logits(task_state["head"], feats, class_mask)

@@ -8,9 +8,16 @@ every mode, e.g.::
         --feature_extractor vit_b_32 --classifier proto --compute_dtype bfloat16 \\
         --with_lite --learn_extractor --num_lite_samples 16 --batch_size 256
 
-It runs on ``cuda:<--gpu>``, where the encoder layers run the port's CUDA
-kernels, and raises without a card. ``main(argv, device="cpu")`` runs it
-on the CPU with the kernels' plain PyTorch versions (the tests do).
+and in ``--mode test`` SimpleCNAPs and CNAPs on the EfficientNets::
+
+    python single_step_learner_torch.py --data_path <orbit root> --mode test \\
+        --feature_extractor efficientnet_b0 --adapt_features --classifier mahalanobis \\
+        --compute_dtype bfloat16 --batch_size 256 --frame_size 224
+
+It runs on ``cuda:<--gpu>``, where the backbones and the Mahalanobis head
+run the port's CUDA kernels, and raises without a card.
+``main(argv, device="cpu")`` runs it on the CPU with the kernels' plain
+PyTorch versions (the tests do).
 """
 from orbit_tpu_torch.learners.single_step import SingleStepLearner
 from orbit_tpu_torch.utils.args import parse_args
