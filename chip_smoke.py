@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch port (``orbit_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py --seed 7   # another draw of weights, tasks and inputs
 
 Phases, each of which passes or raises:
 1. card: the ``nvidia-smi`` name and power limit;
@@ -13,9 +14,12 @@ Phases, each of which passes or raises:
    stride-1 shapes at 224 px (B = 256 and 13, f32 and bf16, act1 on and
    off) and the Mahalanobis logits (#7, D = 1280: the path's batched query,
    M = 1000 against 16 class slots of which 5 are real, then M = 256 and 13
-   against C = 5 and 10 with one padded class); each timed with CUDA events
-   at B = 256 and at #7's path shape, beside its bound, and repeated to
-   show that a second call gives the same bits;
+   against C = 5 and 10 with one padded class); the attention on a raw qkv
+   (#1) and its backward (#2) at the ViT-B/32 and ViT-S/32 shapes (B = 256
+   and 13, f32 and bf16), also timed against
+   ``F.scaled_dot_product_attention`` and its backward; each timed with
+   CUDA events at B = 256 and at #7's path shape, beside its bound, and
+   repeated to show that a second call gives the same bits;
 4. ViT path: the CLU-VE test protocol of the port's single-step learner on
    ViT-B/32 at full width (224 px, 12 layers, D = 768; random weights from
    ``--seed``), bf16 compute, proto head, batch 256, over two synthetic
@@ -48,14 +52,38 @@ Phases, each of which passes or raises:
    learner's ``after_init`` hook: uncalibrated random weights lose the
    input within a few blocks). The launch counters must show #8 in all 12
    stride-1 tails of every extractor forward and #7 in every predict call.
+   Beside the kernels-vs-plain check, phase 7's witness (#8's plain
+   version with its f32 stages in f64) against the plain version is
+   printed: what a change of f32 rounding alone does to the features, the
+   logits and the argmax.
+7. FiLM train path: SimpleCNAPs meta-training with LITE on EfficientNet-B0
+   at full width, through the learner in ``--mode train_test``
+   (``--adapt_features --classifier mahalanobis --with_lite
+   --num_lite_samples 16 --batch_size 256``, bf16) over phase 5's train
+   tasks, calibrated as phase 6. One target batch's gradients of the set
+   encoder and the FiLM generator under a fixed upstream gradient of the
+   logits, kernels against plain versions, held per tensor in f32 and
+   over the whole gradient's norm in bf16, beside a witness (#8's plain
+   version with its f32 stages in f64) and a planted fault (a wrong
+   border in #8's plain version), which the f32 check must see;
+   a ``torch.profiler`` trace of one warm bf16 task step; then the run, whose counters
+   must show #8 in every extractor forward and #7 in every head call, whose
+   updates must move the trained parameters and leave the frozen extractor
+   bit for bit; the median and range of the time per task step and the
+   peak device memory.
 
 The line before the last is ``{"kernels": [...]}`` (launches: kernels A and
-B from phase 4, #4 and #6 from phase 5, #7 and #8 from phase 6); the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
+B from phase 4, #4 and #6 from phase 5, #7 and #8 from phase 6; #1 and #2
+are on no path and report their launches over phases 4 to 7 together,
+which must be 0; their checks and times are phase 3's); the
+last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import argparse
+import contextlib
+import functools
 import json
 import math
 import statistics
@@ -102,6 +130,22 @@ GRAD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
 # gradients, through 12 layers forward and back, are held to the same 2^-4
 # of each tensor's largest value.
 PATH_REL_TOL = 2.0 ** -4
+# The FiLM train path's gradients under a fixed upstream gradient, kernels
+# vs plain versions. In f32, per tensor against its largest value:
+# summation order only (#8's K*K taps, #7's D*D terms, which cancel),
+# carried back through 16 blocks, the heads' inverse and the generators.
+# On an H100, over --seed 1991, 7 and 12345: the kernels read 1.5e-5 to
+# 2.4e-5, #8's plain version with its f32 stages in f64 (the witness)
+# 1.4e-5 to 2.3e-5, and a wrong border in #8 2.1e-3 to 2.7e-3: held to
+# 2e-4, and the wrong border must read above it.
+F32_PATH_GRAD_TOL = 2e-4
+# In bf16, against the whole gradient's norm: a one-ulp flip of an
+# activation travels back through 16 blocks into per-channel sums that
+# cancel. Over the same seeds the witness reads 2.8e-2 to 9.2e-2 of the
+# norm (up to 0.30 of a tensor's largest value), the kernels 3.0e-2 to
+# 5.4e-2: held to 2^-3. A wrong border (4.3e-2 to 5.0e-2) hides in this
+# noise; the f32 check sees it.
+BF16_PATH_GRAD_NORM_TOL = 2.0 ** -3
 ARGMAX_AGREEMENT = 0.99
 # warm repeats of one task for the eval paths' median metrics
 PATH_REPEATS = 10
@@ -119,6 +163,10 @@ KERNELS = {
                            "orbit_tpu/ops/mahalanobis.py:47"),
     "fused_dw_act": ("orbit_tpu_torch/csrc/depthwise.cu",
                      "orbit_tpu/ops/depthwise.py:81"),
+    "tiny_attention": ("orbit_tpu_torch/csrc/tiny_attention.cu",
+                       "orbit_tpu/ops/tiny_attention.py:114"),
+    "tiny_attention_bwd": ("orbit_tpu_torch/csrc/tiny_attention.cu",
+                           "orbit_tpu/ops/tiny_attention.py:247"),
 }
 # EfficientNet-B0's stride-1 depthwise tails at 224 px, one extractor
 # forward: (H = W, C, K, act1) -> tails of that shape
@@ -190,6 +238,63 @@ def compare_grads(ours, ref, tol: float, what: str) -> float:
                                  f"by {err:.3e}, more than {tol} x {scale:.3e}")
         worst = max(worst, err)
     return worst
+
+
+def worst_rel(ours, ref) -> float:
+    """The largest, over tensors, of max |ours - ref| / max |ref|."""
+    return max(float((a.float() - b.float()).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(ours, ref))
+
+
+def norm_rel(ours, ref) -> float:
+    """|ours - ref| / |ref| over all tensors together (Euclidean norms)."""
+    diff = sum(float((a.float() - b.float()).square().sum()) for a, b in zip(ours, ref))
+    return math.sqrt(diff / max(sum(float(b.float().square().sum()) for b in ref), 1e-30))
+
+
+@contextlib.contextmanager
+def dw_plain_as(fn):
+    """#8's plain version replaced by ``fn`` (None keeps it) in the op's
+    forward and in its backward's recompute."""
+    from orbit_tpu_torch.ops import depthwise
+    plain = depthwise.fused_dw_reference
+    depthwise.fused_dw_reference = fn or plain
+    try:
+        yield
+    finally:
+        depthwise.fused_dw_reference = plain
+
+
+def dw_variant(x, w, a1, b1, a2, b2, *, act1: bool, act2: bool, wide: bool = False,
+               raw_border: bool = False):
+    """#8's plain version (``fused_dw_reference``) with one change. ``wide``
+    computes its f32 stages (the affines, the SiLUs, the K*K tap sum) in
+    f64 and keeps its bf16 rounding points: every f32 rounding moves, as
+    the kernel's FMA order moves them. ``raw_border`` is a planted fault:
+    the border is padded before the pre-affine and SiLU, so it holds
+    act1(b1) where TF-SAME holds zeros."""
+    import torch
+    import torch.nn.functional as F
+
+    from orbit_tpu_torch.ops.depthwise import tf_same_pads
+    dt, (n, h, wd, c), k = x.dtype, x.shape, w.shape[0]
+    acc = torch.float64 if wide else torch.float32
+    (top, bottom), (left, right) = tf_same_pads(h, k, 1), tf_same_pads(wd, k, 1)
+    pad = (0, 0, left, right, top, bottom)  # NHWC
+    if raw_border:
+        x = F.pad(x, pad)
+    a = x.to(acc) * a1.to(acc) + b1.to(acc)
+    if act1:
+        a = F.silu(a)
+    a = a.to(dt).to(acc)
+    if not raw_border:
+        a = F.pad(a, pad)
+    taps = w.to(dt).to(acc).permute(3, 2, 0, 1)  # (C, 1, K, K)
+    y = F.conv2d(a.permute(0, 3, 1, 2), taps, groups=c).permute(0, 2, 3, 1)
+    y = y * a2.to(acc) + b2.to(acc)
+    if act2:
+        y = F.silu(y)
+    return y.to(dt).contiguous()
 
 
 def bound(name: str, b: int, s: int, d: int, dtype_name: str):
@@ -408,15 +513,87 @@ def mahalanobis_kernel_phase(torch, card: str) -> dict:
     return row
 
 
+def bound_attention(backward: bool, b: int, s: int, d: int, dtype_name: str):
+    """The bound of one call of the attention on a raw qkv (#1) or its
+    backward (#2) at B = b, S = s, width d: q k^T and p v a head (4 S^2 D
+    FLOPs a batch row), five such products in the backward (the scores
+    recomputed, dp, dv, dq, dk); qkv read and the output written once (the
+    backward also reads g and writes dqkv)."""
+    e = 2 if dtype_name == "bfloat16" else 4
+    flops = (10 if backward else 4) * b * s * s * d
+    nbytes = e * b * s * d * (7 if backward else 4)
+    return _roofline(flops, nbytes, PEAK_FLOPS[dtype_name])
+
+
+def attention_kernel_phase(torch, card: str) -> dict:
+    """Phase 3, #1 and #2: the attention on a raw qkv and its backward
+    against their plain versions at the ViT-B/32 and ViT-S/32 shapes (B 256
+    and a ragged 13, S 50), f32 and bf16; at B 256 the same bits on a
+    repeat, the kernel's, the plain version's and
+    ``F.scaled_dot_product_attention``'s time (its backward for #2) beside
+    the bound. Rows of the kernels line from ViT-B/32 bf16."""
+    import torch.nn.functional as F
+
+    from orbit_tpu_torch.ops.tiny_attention import tiny_attention, tiny_attention_backward
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rows = {name: {"max_abs_err": 0.0} for name in ("tiny_attention", "tiny_attention_bwd")}
+    for vit, d, heads in (("vit_b_32", 768, 12), ("vit_s_32", 384, 6)):
+        for dtype_name in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype_name)
+            for b in (256, 13):
+                qkv = (0.5 * torch.randn(b, 50, 3 * d, generator=g, device=dev)).to(dt)
+                cot = torch.randn(b, 50, d, generator=g, device=dev).to(dt)
+                runs = {"tiny_attention": lambda impl: tiny_attention(qkv, heads, impl=impl),
+                        "tiny_attention_bwd": lambda impl: tiny_attention_backward(
+                            qkv, cot, heads, impl=impl)}
+                for name, run in runs.items():
+                    ours, ref = run(None), run("reference")
+                    torch.cuda.synchronize()
+                    where = f"{name} {vit} {dtype_name} B={b}"
+                    if name == "tiny_attention":
+                        max_abs, max_rel = compare(ours, ref, *KERNEL_TOL[dtype_name], where)
+                        line = f"  {where}: max abs {max_abs:.3e}, max rel {max_rel:.3e}"
+                    else:
+                        max_abs = compare_grads([ours], [ref], GRAD_TOL[dtype_name], where)
+                        line = f"  {where}: max abs {max_abs:.3e}"
+                    rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], max_abs)
+                    if b == 256:
+                        _repeat_check(torch, run, ours, where)
+                        ms, plain_ms = cuda_ms(lambda: run(None)), cuda_ms(lambda: run("reference"))
+                        # the same function in one library call: SDPA on
+                        # (B, H, S, hd) views of q, k and v (no copy)
+                        leaf = qkv.detach().requires_grad_(name == "tiny_attention_bwd")
+                        q, k, v = leaf.view(b, 50, 3, heads, 64).permute(2, 0, 3, 1, 4)
+                        if name == "tiny_attention":
+                            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+                        else:
+                            out = F.scaled_dot_product_attention(q, k, v)
+                            up = cot.view(b, 50, heads, 64).transpose(1, 2)
+                            library_ms = cuda_ms(lambda: torch.autograd.grad(
+                                out, leaf, up, retain_graph=True))
+                            del out
+                        bound_ms, by = bound_attention(name.endswith("_bwd"), b, 50, d, dtype_name)
+                        line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+                                 f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), same bits "
+                                 f"on a repeat ({card})")
+                        if vit == "vit_b_32" and dtype_name == "bfloat16":
+                            rows[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                              bound_by=by, library_ms=library_ms)
+                    print(line)
+    return rows
+
+
 def synthetic_tasks(num_tasks: int = 2, frame_size: int = 224,
-                    video_frames: int = 200, seed: int = SEED):
+                    video_frames: int = 200, seed: int | None = None):
     """Test-mode task dicts (orbit_tpu/data/loader.py:229-247 keys) with
     uint8 frames made in memory: per object a colour and a stripe pattern
     plus noise, about 8 context clips and one clutter video of
     ``video_frames`` frames."""
     import numpy as np
 
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(SEED if seed is None else seed)
     shots = (8, 7, 9, 8, 8)
     root = "/synthetic/test"
     yy = np.arange(frame_size)[:, None, None]
@@ -460,7 +637,7 @@ def synthetic_tasks(num_tasks: int = 2, frame_size: int = 224,
 
 
 def synthetic_train_tasks(num_tasks: int = 4, frame_size: int = 224,
-                          seed: int = SEED, target_shots: int = 60):
+                          seed: int | None = None, target_shots: int = 60):
     """Train-mode task dicts (the loader's train keys: flat target clips)
     with uint8 frames made in memory, 5 objects each: 8 context clips and
     ``target_shots`` target clips per object (40 and 300 a task by default).
@@ -470,7 +647,7 @@ def synthetic_train_tasks(num_tasks: int = 4, frame_size: int = 224,
     saturate (distinct objects give logits hundreds apart and a loss of 0)."""
     import numpy as np
 
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(SEED if seed is None else seed)
     tasks = []
     for _ in range(num_tasks):
         colours = rng.integers(60, 190, size=3) + rng.integers(-2, 3, size=(5, 3))
@@ -503,6 +680,54 @@ class TaskQueue:
         return iter(self.tasks)
 
 
+def recorded_run(torch, learner):
+    """``learner.run()`` with the LITE step recording every task's loss and
+    every optimiser update checked: it must move a parameter, and no frozen
+    parameter (``requires_grad`` off) may change by a bit. The launch
+    counts are set to 0 just before the run and read just after it.
+    Returns (losses, per update (tensors moved, tensors with a nonzero
+    gradient, tensors), launches)."""
+    from orbit_tpu_torch.kernels import build as kbuild
+    from orbit_tpu_torch.learners import steps as steps_lib
+
+    losses, moved = [], []
+    build_lite, build_update = steps_lib.build_train_task_lite, steps_lib.build_apply_update
+
+    def recorded_lite(recogniser, a):
+        fn = build_lite(recogniser, a)
+
+        def run(*xs, **kw):
+            loss, logits = fn(*xs, **kw)
+            losses.append(float(loss))
+            return loss, logits
+        return run
+
+    def checked_update(optimizer):
+        apply = build_update(optimizer)
+        params = [p for group in optimizer.param_groups for p in group["params"]]
+
+        def run():
+            had_grad = [p.grad is not None and bool(p.grad.abs().max() > 0) for p in params]
+            before = [p.detach().clone() for p in params]
+            apply()
+            changed = [not torch.equal(b, p) for b, p in zip(before, params)]
+            if not any(changed):
+                raise AssertionError("an optimiser update moved no parameter")
+            if any(c and not p.requires_grad for c, p in zip(changed, params)):
+                raise AssertionError("an optimiser update moved a frozen parameter")
+            moved.append((sum(changed), sum(had_grad), len(params)))
+        return run
+
+    steps_lib.build_train_task_lite, steps_lib.build_apply_update = recorded_lite, checked_update
+    kbuild.reset_launch_counts()
+    try:
+        learner.run()
+        torch.cuda.synchronize()
+    finally:
+        steps_lib.build_train_task_lite, steps_lib.build_apply_update = build_lite, build_update
+    return losses, moved, dict(kbuild.LAUNCHES)
+
+
 def train_path_phase(torch, card: str, workdir: Path, extractor: str = "vit_b_32",
                      frame_size: int = 224, target_shots: int = 60) -> dict:
     """Phase 5: the port's LITE meta-training path (ViT-B/32 at 224 px
@@ -510,7 +735,6 @@ def train_path_phase(torch, card: str, workdir: Path, extractor: str = "vit_b_32
     gradients through the kernels against those through the plain
     versions."""
     from orbit_tpu_torch.data.episodes import pad_episode
-    from orbit_tpu_torch.kernels import build as kbuild
     from orbit_tpu_torch.learners import steps as steps_lib
     from orbit_tpu_torch.learners.single_step import SingleStepLearner
     from orbit_tpu_torch.models.backbones.vit import ViT
@@ -579,32 +803,6 @@ def train_path_phase(torch, card: str, workdir: Path, extractor: str = "vit_b_32
     del grads, fixed
 
     # the learner's run, with its updates and losses checked
-    losses, moved = [], []
-    build_lite, build_update = steps_lib.build_train_task_lite, steps_lib.build_apply_update
-
-    def recorded_lite(recogniser, a):
-        fn = build_lite(recogniser, a)
-
-        def run(*xs, **kw):
-            loss, logits = fn(*xs, **kw)
-            losses.append(float(loss))
-            return loss, logits
-        return run
-
-    def checked_update(optimizer):
-        apply = build_update(optimizer)
-        params = [p for group in optimizer.param_groups for p in group["params"]]
-
-        def run():
-            had_grad = [p.grad is not None and bool(p.grad.abs().max() > 0) for p in params]
-            before = [p.detach().clone() for p in params]
-            apply()
-            changed = [not torch.equal(b, p) for b, p in zip(before, params)]
-            if not any(changed):
-                raise AssertionError("an optimiser update moved no parameter")
-            moved.append((sum(changed), sum(had_grad), len(params)))
-        return run
-
     forwards = [0]
     vit_forward = ViT.forward
 
@@ -612,19 +810,14 @@ def train_path_phase(torch, card: str, workdir: Path, extractor: str = "vit_b_32
         forwards[0] += 1
         return vit_forward(self, x)
 
-    steps_lib.build_train_task_lite, steps_lib.build_apply_update = recorded_lite, checked_update
     ViT.forward = counted_forward
     torch.cuda.reset_peak_memory_stats()
-    kbuild.reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        learner.run()
-        torch.cuda.synchronize()
+        losses, moved, launches = recorded_run(torch, learner)
     finally:
-        steps_lib.build_train_task_lite, steps_lib.build_apply_update = build_lite, build_update
         ViT.forward = vit_forward
     wall = time.perf_counter() - t0
-    launches = dict(kbuild.LAUNCHES)
 
     if len(losses) != len(train_tasks) or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"train losses {losses}")
@@ -642,15 +835,205 @@ def train_path_phase(torch, card: str, workdir: Path, extractor: str = "vit_b_32
                                  f"{DEPTH} x {forwards[0]} extractor forwards")
     if not Path(learner.test_evaluator.json_results_path).exists():
         raise AssertionError("the test protocol after training wrote no results.json")
-    steps = learner.train_step_seconds
     print(f"  {len(train_tasks)} tasks, {sum(batches)} target batches, {len(moved)} "
           f"updates (parameter tensors moved, with a nonzero gradient, in all: "
           f"{moved}), losses "
           f"{[round(x, 6) for x in losses]}, {forwards[0]} extractor forwards, "
           f"wall {wall:.2f} s")
-    print(f"  time per task step: {1e3 * statistics.mean(steps):.2f} ms (each: "
-          f"{[round(1e3 * x, 2) for x in steps]}); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+    print_step_times(torch, learner.train_step_seconds, card)
+    return launches
+
+
+def print_step_times(torch, seconds, card: str) -> None:
+    """The learner's time per task step (each ended by a device sync):
+    the median and range of the warm steps (all but the first), every
+    step, and the run's peak device memory."""
+    ms = [1e3 * x for x in seconds]
+    warm = ms[1:] or ms
+    print(f"  time per task step: median {statistics.median(warm):.2f} ms over {len(warm)} "
+          f"warm steps ({min(warm):.2f}-{max(warm):.2f}; each: {[round(x, 2) for x in ms]}); "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+
+
+def film_train_phase(torch, card: str, workdir: Path) -> dict:
+    """Phase 7: FiLM meta-training of SimpleCNAPs with LITE on
+    EfficientNet-B0 at full width (224 px, all 16 MBConv blocks, D = 1280),
+    bf16, through the learner in ``--mode train_test`` (``--adapt_features
+    --classifier mahalanobis --with_lite --num_lite_samples 16 --batch_size
+    256 --tasks_per_batch 2``) over phase 5's synthetic train tasks, with
+    every BatchNorm calibrated after each weight draw, as phase 6. Before
+    the run, one task's target batch through the kernels and through their
+    plain versions, with the same injected subsets: the gradients of every
+    trained parameter (set encoder, FiLM generator) under one fixed upstream
+    gradient of the logits, in f32 (the parameters are f32; only the
+    activations change type) held per tensor to F32_PATH_GRAD_TOL, in bf16
+    held over the whole gradient to BF16_PATH_GRAD_NORM_TOL (a bf16
+    rounding flip of an activation travels back through 16 blocks into
+    per-channel sums that cancel, so per-tensor differences of a tenth
+    appear whatever the kernels do). Beside them, against the same plain
+    route: the witness, #8's plain version with its f32 stages in f64,
+    which shows the size of those differences; and a planted fault, a wrong
+    border in #8's plain version, which the f32 check must see. The whole
+    steps' losses and gradients are printed, as phase 5 prints its whole
+    step. The run must launch #8 in all 12 stride-1 tails of every
+    extractor forward and #7 in every head call, move the trained
+    parameters and keep the frozen extractor's bits."""
+    import numpy as np
+
+    from orbit_tpu_torch.data.episodes import pad_episode
+    from orbit_tpu_torch.learners import steps as steps_lib
+    from orbit_tpu_torch.learners.single_step import SingleStepLearner
+    from orbit_tpu_torch.models.backbones.efficientnet import EfficientNet, calibrate_batchnorm
+    from orbit_tpu_torch.models.recognisers import SingleStepFewShotRecogniser
+    from orbit_tpu_torch.utils.args import parse_args
+
+    batch, num_lite = 256, 16
+    args = parse_args("single-step-learner", [
+        "--data_path", str(workdir / "data"), "--checkpoint_dir", str(workdir / "ckpt"),
+        "--mode", "train_test", "--feature_extractor", "efficientnet_b0", "--adapt_features",
+        "--classifier", "mahalanobis", "--compute_dtype", "bfloat16",
+        "--batch_size", str(batch), "--frame_size", "224", "--with_lite",
+        "--num_lite_samples", str(num_lite), "--tasks_per_batch", "2", "--epochs", "1",
+        "--num_train_tasks", "1", "--num_val_tasks", "1", "--num_test_tasks", "1",
+        "--seed", str(SEED)])
+    train_tasks = synthetic_train_tasks()
+    # every task's context frames: each task has its own colour, and
+    # statistics of one task's frames alone put the others' activations
+    # many deviations out, where B0's features grow to about 1e4
+    frames = torch.from_numpy(np.concatenate([t["context_clips"][:, 0] for t in train_tasks]))
+
+    def after_init(rec):
+        calibrate_batchnorm(rec.extractor, rec._maybe_normalize(frames.to(rec.pixel_mean.device)))
+    learner = SingleStepLearner(
+        args, train_queue=TaskQueue(train_tasks),
+        validation_queue=TaskQueue(synthetic_tasks(1, seed=SEED + 1)),
+        test_queue=TaskQueue(synthetic_tasks(2, seed=SEED + 2)), after_init=after_init)
+    batches = [math.ceil(len(t["target_labels"]) / batch) for t in train_tasks]
+
+    rec, dev = learner.recogniser, learner.device
+    episode = learner._train_episode(pad_episode(train_tasks[0]))
+    gen = torch.Generator().manual_seed(SEED)
+    subsets = [steps_lib.lite_grad_subset(gen, episode["context_mask"], num_lite)
+               for _ in range(batches[0])]
+    step = steps_lib.build_train_task_lite(rec, args)
+    class_mask, target = episode["class_mask"], episode["target_clips"][:batch]
+    upstream = torch.where(class_mask.bool(), torch.randn(
+        target.shape[0], class_mask.shape[0],
+        generator=torch.Generator(device=dev).manual_seed(SEED), device=dev), 0.0)
+    trained = [p for p in rec.parameters() if p.requires_grad]
+    step_loss, step_worst = {}, {}
+    for dtype_name in ("float32", "bfloat16"):
+        # the parameters are f32 in training; the compute dtype only casts
+        # the activations, so one model serves both dtypes
+        rec.dtype = rec.extractor.dtype = getattr(torch, dtype_name)
+        grads = {}
+        for impl in (None, "reference"):
+            rec.impl = impl
+            rec.zero_grad(set_to_none=True)
+            step_loss[dtype_name, impl] = float(step(episode, grad_idxs=subsets)[0])
+            grads[impl] = [p.grad.clone() for p in trained]
+        step_worst[dtype_name] = worst_rel(grads[None], grads["reference"])
+        del grads
+
+    def fixed_grads(dtype_name, impl, dw_plain=None):
+        """The trained parameters' gradients for one target batch under the
+        fixed upstream gradient of the logits; ``dw_plain`` stands in for
+        #8's plain version (forward and recompute)."""
+        rec.dtype = rec.extractor.dtype = getattr(torch, dtype_name)
+        rec.impl = impl
+        try:
+            with dw_plain_as(dw_plain):
+                rec.zero_grad(set_to_none=True)
+                state = rec.personalise_with_lite(
+                    episode["context_clips"], episode["context_labels"],
+                    episode["context_mask"], class_mask.shape[0], subsets[0])
+                logits = rec.predict(state, target, class_mask, with_grad=True)
+                torch.where(class_mask.bool(), logits, 0.0).mul(upstream).sum().backward()
+            return [p.grad.clone() for p in trained]
+        finally:
+            rec.dtype = rec.extractor.dtype = learner.dtype
+            rec.impl = None
+            rec.zero_grad(set_to_none=True)
+
+    # kernels and plain versions; the plain route with #8's f32 stages in
+    # f64 (the witness: what moving the f32 roundings alone does); the plain
+    # route with a wrong border in #8 (a planted fault)
+    variants = {"kernels": (None,), "plain": ("reference",),
+                "wide": ("reference", functools.partial(dw_variant, wide=True)),
+                "fault": ("reference", functools.partial(dw_variant, raw_border=True))}
+    read = {}
+    for dtype_name in ("float32", "bfloat16"):
+        fixed = {v: fixed_grads(dtype_name, *a) for v, a in variants.items()}
+        for v in ("kernels", "wide", "fault"):
+            read[dtype_name, v] = (worst_rel(fixed[v], fixed["plain"]),
+                                   norm_rel(fixed[v], fixed["plain"]))
+        if dtype_name == "float32":
+            worst = compare_grads(fixed["kernels"], fixed["plain"], F32_PATH_GRAD_TOL,
+                                  "f32 FiLM gradients under a fixed upstream gradient, "
+                                  "kernels vs plain")
+        del fixed
+    print(f"FiLM train path, EfficientNet-B0 SimpleCNAPs LITE (card: {card}): one task's "
+          + "; ".join(f"{dt} step loss {step_loss[dt, None]:.6f} with the kernels, "
+                      f"{step_loss[dt, 'reference']:.6f} plain, gradients differing by at most "
+                      f"{step_worst[dt]:.3e} of a tensor's largest value" for dt in step_worst))
+    print(f"  under a fixed upstream gradient of the logits, {len(trained)} gradient tensors "
+          f"(set encoder, FiLM generator) against the plain route, as (largest per-tensor "
+          f"difference over the tensor's largest value, difference's norm over the whole "
+          f"gradient's norm): " + "; ".join(
+              f"{dt} {v} ({read[dt, v][0]:.3e}, {read[dt, v][1]:.3e})"
+              for dt in ("float32", "bfloat16") for v in ("kernels", "wide", "fault"))
+          + f"; f32 kernels max abs {worst:.3e}")
+    if read["float32", "fault"][0] <= F32_PATH_GRAD_TOL:
+        raise AssertionError("the f32 gradient check does not see a wrong border in #8")
+    if read["bfloat16", "kernels"][1] > BF16_PATH_GRAD_NORM_TOL:
+        raise AssertionError(f"bf16 FiLM gradients, kernels vs plain, differ by "
+                             f"{read['bfloat16', 'kernels'][1]:.3e} of the gradient's norm, "
+                             f"more than {BF16_PATH_GRAD_NORM_TOL}")
+    # one warm bf16 LITE step under the profiler: device time by kernel
+    # group and the device's idle share
+    device_breakdown(torch, lambda: step(episode, grad_idxs=subsets), card)
+    rec.zero_grad(set_to_none=True)
+
+    # the learner's run; extractor forwards and head calls counted (the
+    # calibration's composed forwards launch no kernel and are not counted)
+    forwards, heads = [0], [0]
+    eff_forward, head_logits = EfficientNet.forward, SingleStepFewShotRecogniser.head_logits
+
+    def counted_forward(self, x, film=None, impl=None):
+        forwards[0] += impl != "composed"
+        return eff_forward(self, x, film, impl)
+
+    def counted_head(self, *a, **kw):
+        heads[0] += 1
+        return head_logits(self, *a, **kw)
+
+    EfficientNet.forward, SingleStepFewShotRecogniser.head_logits = counted_forward, counted_head
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        losses, moved, launches = recorded_run(torch, learner)
+    finally:
+        EfficientNet.forward, SingleStepFewShotRecogniser.head_logits = eff_forward, head_logits
+    wall = time.perf_counter() - t0
+
+    if len(losses) != len(train_tasks) or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train losses {losses}")
+    if len(moved) != math.ceil(len(train_tasks) / args.tasks_per_batch):
+        raise AssertionError(f"{len(moved)} optimiser updates")
+    if launches["fused_dw_act"] != B0_DW_PER_FORWARD * forwards[0]:
+        raise AssertionError(f"fused_dw_act: {launches['fused_dw_act']} launches, expected "
+                             f"{B0_DW_PER_FORWARD} x {forwards[0]} extractor forwards")
+    if launches["mahalanobis_logits"] != heads[0]:
+        raise AssertionError(f"mahalanobis_logits: {launches['mahalanobis_logits']} launches "
+                             f"for {heads[0]} head calls")
+    if not Path(learner.test_evaluator.json_results_path).exists():
+        raise AssertionError("the test protocol after training wrote no results.json")
+    print(f"  {len(train_tasks)} tasks, {sum(batches)} target batches, {len(moved)} updates "
+          f"(parameter tensors moved, with a nonzero gradient, in all: {moved}), losses "
+          f"{[round(x, 6) for x in losses]}, {forwards[0]} extractor forwards, {heads[0]} head "
+          f"calls; launches: fused_dw_act {launches['fused_dw_act']}, mahalanobis_logits "
+          f"{launches['mahalanobis_logits']}; wall {wall:.2f} s")
+    print_step_times(torch, learner.train_step_seconds, card)
     return launches
 
 
@@ -804,24 +1187,36 @@ def eval_path_phase(torch, card: str, workdir: Path, label: str, flags: list,
     class_mask = torch.from_numpy(ep.class_mask).to(dev)
     query = torch.from_numpy(np.concatenate(ep.video_frames)[:, None]).to(dev)
     real = np.concatenate([m > 0 for m in ep.video_masks])
+    runs = {"kernels": (None, None), "plain": ("reference", None)}
+    if calibrate:  # the EfficientNet: phase 7's witness, #8's f32 stages in f64
+        runs["wide"] = ("reference", functools.partial(dw_variant, wide=True))
     out = {}
-    for impl in (None, "reference"):
+    for run, (impl, dw_plain) in runs.items():
         rec.impl = impl
-        with torch.inference_mode():
+        with torch.inference_mode(), dw_plain_as(dw_plain):
             state = rec.personalise(ctx, labels, mask, ep.num_classes)
-            out[impl] = (rec.embed_clips(ctx, film=state["film"]),
-                         rec.predict(state, query, class_mask))
+            out[run] = (rec.embed_clips(ctx, film=state["film"]),
+                        rec.predict(state, query, class_mask))
     rec.impl = None
-    (fk, lk), (fr, lr) = out[None], out["reference"]
+    (fk, lk), (fr, lr) = out["kernels"], out["plain"]
     if not (torch.isfinite(lk).all() and torch.isfinite(fk).all()):
         raise AssertionError("non-finite features or logits on the kernel path")
     present = class_mask.bool()  # padded classes hold -1e30 on both sides
+
+    def agreement(logits):
+        return float((logits.argmax(-1) == lr.argmax(-1)).cpu().numpy()[real].mean())
     for what, a, b in (("features", fk, fr), ("logits", lk[:, present], lr[:, present])):
         max_abs, max_rel = compare(a, b, 0.0, PATH_REL_TOL * float(b.abs().max()),
                                    f"{label} {what}")
         print(f"  kernels vs plain, task 0 {what}: max abs {max_abs:.3e}, max rel {max_rel:.3e}")
-    agree = float((lk.argmax(-1) == lr.argmax(-1)).cpu().numpy()[real].mean())
+    agree = agreement(lk)
     print(f"  argmax agreement on {int(real.sum())} real query frames: {agree:.4f}")
+    if "wide" in out:
+        fw, lw = out["wide"]
+        print(f"  witness (#8's f32 stages in f64) vs plain, task 0: features max rel "
+              f"{compare(fw, fr, 0.0, math.inf, 'witness features')[1]:.3e}, logits max rel "
+              f"{compare(lw[:, present], lr[:, present], 0.0, math.inf, 'witness')[1]:.3e}, "
+              f"argmax agreement {agreement(lw):.4f}")
     if agree < ARGMAX_AGREEMENT:
         raise AssertionError(f"argmax agreement {agree:.4f} < {ARGMAX_AGREEMENT}")
 
@@ -851,7 +1246,13 @@ def eval_path_phase(torch, card: str, workdir: Path, label: str, flags: list,
     return launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    global SEED
+    parser = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one GPU")
+    parser.add_argument("--seed", type=int, default=SEED,
+                        help="seed of the weights, the synthetic tasks, the grad subsets and "
+                             "the kernels' inputs (default %(default)s)")
+    SEED = parser.parse_args(argv).seed
     if not (REPO / "orbit_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from the root of an orbit-tpu checkout "
               "(orbit_tpu_torch/ not found)", file=sys.stderr)
@@ -882,9 +1283,10 @@ def main() -> int:
     rows = kernel_phase(torch, card)
     rows["fused_dw_act"] = dw_kernel_phase(torch, card)
     rows["mahalanobis_logits"] = mahalanobis_kernel_phase(torch, card)
+    rows.update(attention_kernel_phase(torch, card))
 
-    # phases 4, 5 and 6: the ViT eval path, the ViT train path and the
-    # SimpleCNAPs path, each read alone
+    # phases 4 to 7: the ViT eval path, the ViT train path, the SimpleCNAPs
+    # path and the SimpleCNAPs FiLM train path, each read alone
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         paths = {
             "eval": eval_path_phase(
@@ -897,28 +1299,44 @@ def main() -> int:
                 "EfficientNet-B0 SimpleCNAPs path (FiLM, Mahalanobis head)",
                 ["--feature_extractor", "efficientnet_b0", "--adapt_features",
                  "--classifier", "mahalanobis"],
-                {"fused_dw_act": B0_DW_PER_FORWARD}, calibrate=True)}
-    # the path whose launches each kernel's row reports
-    path_of = {"fused_qkv_attention": "eval", "fused_mlp_block": "eval",
-               "fused_qkv_attention_bwd": "train", "fused_mlp_block_bwd": "train",
-               "mahalanobis_logits": "simplecnaps", "fused_dw_act": "simplecnaps"}
-    for path, launches in paths.items():
-        needed = [n for n, p in path_of.items() if p == path or (path == "train" and p == "eval")]
-        unused = [n for n in needed if launches[n] < 1]
+                {"fused_dw_act": B0_DW_PER_FORWARD}, calibrate=True),
+            "film_train": film_train_phase(torch, card, Path(tmp) / "film_train")}
+    # the kernels each path must launch; a kernel's row reports the first
+    # path that launches it
+    path_kernels = {"eval": ["fused_qkv_attention", "fused_mlp_block"],
+                    "train": ["fused_qkv_attention", "fused_mlp_block",
+                              "fused_qkv_attention_bwd", "fused_mlp_block_bwd"],
+                    "simplecnaps": ["mahalanobis_logits", "fused_dw_act"],
+                    "film_train": ["mahalanobis_logits", "fused_dw_act"]}
+    path_of = {}
+    for path, names in path_kernels.items():
+        unused = [n for n in names if paths[path][n] < 1]
         if unused:
             raise AssertionError(f"not launched on the {path} path: {unused}")
+        for name in names:
+            path_of.setdefault(name, path)
+    # #1 and #2 are on no path (no learner calls the attention on a raw
+    # qkv, in the JAX package or here): their rows report every path's
+    # launches together, which must be 0; their checks and times are phase 3's
+    off_path = {name: sum(launches[name] for launches in paths.values())
+                for name in KERNELS if name not in path_of}
+    if any(off_path.values()):
+        raise AssertionError(f"kernels of no path were launched on a path: {off_path}")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        # no single PyTorch call computes any of the six functions, so there
-        # is no library time
-        launches = paths[path_of[name]][name]
+        # one PyTorch call computes the same function only for #1 and #2
+        # (scaled_dot_product_attention, forward and backward)
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches,
+                        "replaces": replaces,
+                        "launches": (paths[path_of[name]][name] if name in path_of
+                                     else off_path[name]),
+                        "path": path_of.get(name, "none (phase 3 only)"),
                         "max_abs_err": rows[name]["max_abs_err"],
                         "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
                         "bound_ms": rows[name]["bound_ms"],
-                        "bound_by": rows[name]["bound_by"], "library_ms": None})
+                        "bound_by": rows[name]["bound_by"],
+                        "library_ms": rows[name].get("library_ms")})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,6 +39,7 @@
 #include <cmath>
 #include <type_traits>
 
+#include "attention.cuh"
 #include "common.cuh"
 
 namespace {
@@ -46,15 +47,15 @@ namespace {
 using orbit::from_float;
 using orbit::round_to;
 using orbit::to_float;
+using orbit::attn::kHeadDim;
+using orbit::attn::kMaxTokens;
+using orbit::attn::kQkvLd;
+using orbit::attn::kScoreLd;
+using orbit::attn::kThreads;  // 16 x 16 thread grid in the projection
 
-constexpr int kHeadDim = 64;          // hd of every supported ViT
-constexpr int kMaxTokens = 64;        // S <= 64 (50 at 224 px, 5 at 84 px)
 constexpr int kTileK = 32;            // D tile streamed per step
-constexpr int kThreads = 256;         // 16 x 16 thread grid in the projection
 constexpr int kCols = 3 * kHeadDim;   // q | k | v columns of one head
-constexpr int kQkvLd = kHeadDim + 1;  // padded row stride: conflict-free k[j][d]
 constexpr int kXLd = kTileK + 4;      // float4-aligned rows
-constexpr int kScoreLd = kMaxTokens + 1;
 
 constexpr int kQkvFloats = 3 * kMaxTokens * kQkvLd;
 constexpr int kStageFloats = kMaxTokens * kXLd + kTileK * kCols;
@@ -147,44 +148,8 @@ fused_qkv_attention_kernel(const T* __restrict__ x, const T* __restrict__ w,
     }
   }
   __syncthreads();  // the staging tiles are dead from here: sc reuses them
-
-  // ---- scores (f32), scaled after the dot ----
-  const float scale = 1.0f / sqrtf(static_cast<float>(kHeadDim));
-  for (int e = tid; e < S * S; e += kThreads) {
-    const int i = e / S, j = e % S;
-    float s = 0.f;
-#pragma unroll 16
-    for (int d = 0; d < kHeadDim; ++d) s = fmaf(qs[i * kQkvLd + d], ks[j * kQkvLd + d], s);
-    sc[i * kScoreLd + j] = s * scale;
-  }
-  __syncthreads();
-
-  // ---- softmax (f32), one warp per row; p rounded to T before AV ----
-  const int warp = tid / 32, lane = tid % 32;
-  for (int i = warp; i < S; i += kThreads / 32) {
-    float* row = sc + i * kScoreLd;
-    float m = -INFINITY;
-    for (int j = lane; j < S; j += 32) m = fmaxf(m, row[j]);
-    m = orbit::warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < S; j += 32) {
-      const float p = expf(row[j] - m);
-      row[j] = p;
-      sum += p;
-    }
-    sum = orbit::warp_sum(sum);
-    for (int j = lane; j < S; j += 32) row[j] = round_to<T>(row[j] / sum);
-  }
-  __syncthreads();
-
-  // ---- out = cast_T(p @ v), f32 accumulation ----
-  T* ob = out + static_cast<size_t>(b) * S * D + h * kHeadDim;
-  for (int e = tid; e < S * kHeadDim; e += kThreads) {
-    const int i = e / kHeadDim, d = e % kHeadDim;
-    float o = 0.f;
-    for (int j = 0; j < S; ++j) o = fmaf(sc[i * kScoreLd + j], vs[j * kQkvLd + d], o);
-    ob[static_cast<size_t>(i) * D + d] = from_float<T>(o);
-  }
+  orbit::attn::attend_fma<T>(qs, ks, vs, sc,
+                             out + static_cast<size_t>(b) * S * D + h * kHeadDim, S, D);
 }
 
 // ---------------------------------------------------------------------------
@@ -198,14 +163,13 @@ fused_qkv_attention_kernel(const T* __restrict__ x, const T* __restrict__ w,
 // go to f32 shared memory for the softmax, whose bf16 p has zeros in every
 // column >= S, so the padded rows of v (bias only) add nothing to p v.
 // ---------------------------------------------------------------------------
+using orbit::attn::kTcLd;
+using orbit::attn::kTcTileBytes;
+
 constexpr int kTcTileK = 64;
-constexpr int kTcLd = kHeadDim + 8;      // bf16 tiles: rows stay 32-byte aligned
-constexpr int kTcScoreLd = kMaxTokens + 4;  // f32 scores
-constexpr int kTcTileBytes = sizeof(__nv_bfloat16) * kMaxTokens * kTcLd;  // 9216
-constexpr size_t kTcSmemBytes =
-    5 * kTcTileBytes                                  // x slice, q, k, v, p
-    + sizeof(float) * kMaxTokens * kTcScoreLd         // scores
-    + sizeof(float) * (kThreads / 32) * 256;          // per-warp f32 tile
+constexpr size_t kTcSmemBytes = 5 * kTcTileBytes               // x slice, q, k, v, p
+                                + orbit::attn::kTcScoreBytes     // scores
+                                + orbit::attn::kTcWarpTileBytes;  // per-warp f32 tiles
 
 __global__ void __launch_bounds__(kThreads)
 fused_qkv_attention_tc_kernel(const __nv_bfloat16* __restrict__ x,
@@ -221,7 +185,7 @@ fused_qkv_attention_tc_kernel(const __nv_bfloat16* __restrict__ x,
   bf16* vs = reinterpret_cast<bf16*>(tc_smem + 3 * kTcTileBytes);
   bf16* ps = reinterpret_cast<bf16*>(tc_smem + 4 * kTcTileBytes);
   float* sc = reinterpret_cast<float*>(tc_smem + 5 * kTcTileBytes);
-  float* wtiles = sc + kMaxTokens * kTcScoreLd;
+  float* wtiles = sc + kMaxTokens * orbit::attn::kTcScoreLd;
 
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
@@ -278,70 +242,8 @@ fused_qkv_attention_tc_kernel(const __nv_bfloat16* __restrict__ x,
   }
   __syncthreads();
 
-  // ---- scores = q k^T (f32): warp w computes tiles (w/2, 2*(w%2)) and (w/2, 2*(w%2)+1) ----
-  const float scale = 1.0f / sqrtf(static_cast<float>(kHeadDim));
-#pragma unroll
-  for (int t = 0; t < 2; ++t) {
-    const int si = warp / 2, sj = 2 * (warp % 2) + t;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-    wmma::fill_fragment(s, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < kHeadDim; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kt;
-      wmma::load_matrix_sync(a, qs + si * 16 * kTcLd + kk, kTcLd);
-      wmma::load_matrix_sync(kt, ks + sj * 16 * kTcLd + kk, kTcLd);  // k^T
-      wmma::mma_sync(s, a, kt, s);
-    }
-#pragma unroll
-    for (int e = 0; e < s.num_elements; ++e) s.x[e] *= scale;
-    wmma::store_matrix_sync(sc + si * 16 * kTcScoreLd + sj * 16, s, kTcScoreLd,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  // ---- softmax (f32), one warp per row; p in bf16, zero outside S x S ----
-  for (int i = warp; i < kMaxTokens; i += kThreads / 32) {
-    const float* row = sc + i * kTcScoreLd;
-    bf16* prow = ps + i * kTcLd;
-    if (i >= S) {
-      for (int j = lane; j < kMaxTokens; j += 32) prow[j] = from_float<bf16>(0.f);
-      continue;
-    }
-    float m = -INFINITY;
-    for (int j = lane; j < S; j += 32) m = fmaxf(m, row[j]);
-    m = orbit::warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < S; j += 32) sum += expf(row[j] - m);
-    sum = orbit::warp_sum(sum);
-    for (int j = lane; j < kMaxTokens; j += 32)
-      prow[j] = from_float<bf16>(j < S ? expf(row[j] - m) / sum : 0.f);
-  }
-  __syncthreads();
-
-  // ---- out = cast_bf16(p v), f32 accumulation: same tile split as the scores ----
-  bf16* ob = out + static_cast<size_t>(b) * S * D + h * kHeadDim;
-#pragma unroll
-  for (int t = 0; t < 2; ++t) {
-    const int oi = warp / 2, oj = 2 * (warp % 2) + t;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-    wmma::fill_fragment(o, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < kMaxTokens; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> v;
-      wmma::load_matrix_sync(a, ps + oi * 16 * kTcLd + kk, kTcLd);
-      wmma::load_matrix_sync(v, vs + kk * kTcLd + oj * 16, kTcLd);
-      wmma::mma_sync(o, a, v, o);
-    }
-    wmma::store_matrix_sync(tile, o, 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int i = oi * 16 + e / 16;
-      if (i < S) ob[static_cast<size_t>(i) * D + oj * 16 + e % 16] = from_float<bf16>(tile[e]);
-    }
-    __syncwarp();
-  }
+  orbit::attn::attend_tc(qs, ks, vs, ps, sc, wtiles,
+                         out + static_cast<size_t>(b) * S * D + h * kHeadDim, S, D);
 }
 
 template <typename T>

@@ -23,9 +23,9 @@
 //    (the TPU kernel keeps it in VMEM).
 // 2. One block per (batch row, head) holds that head's q, k, v and g in
 //    shared memory, recomputes the softmax and writes dq, dk, dv into an f32
-//    (B,S,3D) workspace. The block is a device function of a kernel that
-//    takes a raw qkv, so the backward of the unfused attention (TPU kernel
-//    #2, _attn_bwd_kernel) can launch the same kernel.
+//    (B,S,3D) workspace. The block is attention.cuh's device function on a
+//    raw qkv, which the backward of the unfused attention (TPU kernel #2,
+//    tiny_attention.cu) runs too, writing its dqkv in T.
 // 3. dx, dW and db as tiled products and a column sum over all B*S rows
 //    (common.cuh). The TPU kernel adds dW and db into accumulators that stay
 //    resident across its sequential grid; blocks here run in no order, so
@@ -40,6 +40,7 @@
 
 #include <cmath>
 
+#include "attention.cuh"
 #include "common.cuh"
 
 namespace {
@@ -47,16 +48,11 @@ namespace {
 using orbit::from_float;
 using orbit::Mat;
 using orbit::MatT;
-using orbit::round_to;
 using orbit::to_float;
 
-constexpr int kHeadDim = 64;           // hd of every supported ViT
-constexpr int kMaxTokens = 64;         // S <= 64 (50 at 224 px)
-constexpr int kThreads = 256;
-constexpr int kLd = kHeadDim + 1;      // q, k, v, g rows in shared memory
-constexpr int kPLd = kMaxTokens + 1;   // p and ds rows
-constexpr size_t kSmemBytes =
-    sizeof(float) * (4 * kMaxTokens * kLd + 2 * kMaxTokens * kPLd);
+using orbit::attn::kHeadDim;
+using orbit::attn::kMaxTokens;
+using orbit::attn::kThreads;
 
 // qkv = cast_T(sum + b): the recompute's rounding point
 template <typename T>
@@ -69,95 +65,15 @@ struct QkvEpi {
   }
 };
 
-// Stage 2 for one (batch row b, head h): q, k, v from the raw qkv (B,S,3D)
-// in T, g (B,S,D) in T; dq, dk, dv to the f32 dqkv (B,S,3D).
-template <typename T>
-__device__ void attention_backward_block(const T* __restrict__ qkv, const T* __restrict__ g,
-                                         float* __restrict__ dqkv, int b, int h, int S,
-                                         int D, float* smem) {
-  float* qs = smem;                      // [kMaxTokens][kLd]
-  float* ks = qs + kMaxTokens * kLd;
-  float* vs = ks + kMaxTokens * kLd;
-  float* gs = vs + kMaxTokens * kLd;
-  float* ps = gs + kMaxTokens * kLd;     // scores, then p (f32)   [kMaxTokens][kPLd]
-  float* ds = ps + kMaxTokens * kPLd;    // dp, then cast_T(ds * scale)
-  const int tid = threadIdx.x;
-  const int d3 = 3 * D;
-  const size_t row0 = static_cast<size_t>(b) * S;
-
-  for (int e = tid; e < S * kHeadDim; e += kThreads) {
-    const int i = e / kHeadDim, c = e % kHeadDim;
-    const T* r = qkv + (row0 + i) * d3 + h * kHeadDim + c;
-    qs[i * kLd + c] = to_float(r[0]);
-    ks[i * kLd + c] = to_float(r[D]);
-    vs[i * kLd + c] = to_float(r[2 * D]);
-    gs[i * kLd + c] = to_float(g[(row0 + i) * D + h * kHeadDim + c]);
-  }
-  __syncthreads();
-
-  // scores (scaled after the dot, as the forward) and dp = g v^T
-  const float scale = 1.0f / sqrtf(static_cast<float>(kHeadDim));
-  for (int e = tid; e < S * S; e += kThreads) {
-    const int i = e / S, j = e % S;
-    float s = 0.f, dp = 0.f;
-#pragma unroll 16
-    for (int d = 0; d < kHeadDim; ++d) {
-      s = fmaf(qs[i * kLd + d], ks[j * kLd + d], s);
-      dp = fmaf(gs[i * kLd + d], vs[j * kLd + d], dp);
-    }
-    ps[i * kPLd + j] = s * scale;
-    ds[i * kPLd + j] = dp;
-  }
-  __syncthreads();
-
-  // softmax (f32) as the forward, one warp per row; then
-  // ds = cast_T(p * (dp - rowsum(dp * p)) * scale)
-  const int warp = tid / 32, lane = tid % 32;
-  for (int i = warp; i < S; i += kThreads / 32) {
-    float* row = ps + i * kPLd;
-    float* drow = ds + i * kPLd;
-    float m = -INFINITY;
-    for (int j = lane; j < S; j += 32) m = fmaxf(m, row[j]);
-    m = orbit::warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < S; j += 32) {
-      const float p = expf(row[j] - m);
-      row[j] = p;
-      sum += p;
-    }
-    sum = orbit::warp_sum(sum);
-    float t = 0.f;
-    for (int j = lane; j < S; j += 32) {
-      row[j] = row[j] / sum;
-      t += drow[j] * row[j];
-    }
-    t = orbit::warp_sum(t);
-    for (int j = lane; j < S; j += 32) drow[j] = round_to<T>(row[j] * (drow[j] - t) * scale);
-  }
-  __syncthreads();
-
-  // dv = cast_T(p)^T g, dq = ds k, dk = ds^T q, all f32 sums
-  for (int e = tid; e < S * kHeadDim; e += kThreads) {
-    const int r = e / kHeadDim, c = e % kHeadDim;
-    float dv = 0.f, dq = 0.f, dk = 0.f;
-    for (int t = 0; t < S; ++t) {
-      dv = fmaf(round_to<T>(ps[t * kPLd + r]), gs[t * kLd + c], dv);
-      dq = fmaf(ds[r * kPLd + t], ks[t * kLd + c], dq);
-      dk = fmaf(ds[t * kPLd + r], qs[t * kLd + c], dk);
-    }
-    float* o = dqkv + (row0 + r) * d3 + h * kHeadDim + c;
-    o[0] = dq;
-    o[D] = dk;
-    o[2 * D] = dv;
-  }
-}
-
+// Stage 2: one block per (batch row, head), blockIdx.x = b * H + h; dq,
+// dk, dv to the f32 workspace dqkv (B,S,3D)
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 attention_backward_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
                           float* __restrict__ dqkv, int S, int D, int H) {
   extern __shared__ float smem[];
-  attention_backward_block<T>(qkv, g, dqkv, blockIdx.x / H, blockIdx.x % H, S, D, smem);
+  orbit::attn::attention_backward_block<T, float>(qkv, g, dqkv, blockIdx.x / H,
+                                                  blockIdx.x % H, S, D, smem);
 }
 
 template <typename T>
@@ -181,9 +97,9 @@ int launch(const void* x_, const void* w_, const void* bias_, const void* g_, vo
     return e;
   // 2. attention backward per (batch row, head) -> dqkv (f32)
   static bool configured = false;  // one flag per instantiation
-  if (const int e = orbit::set_smem(attention_backward_kernel<T>, kSmemBytes, &configured))
-    return e;
-  attention_backward_kernel<T><<<B * H, kThreads, kSmemBytes, s>>>(qkv, g, dqkv, S, D, H);
+  constexpr size_t smem = orbit::attn::kBwdSmemBytes;
+  if (const int e = orbit::set_smem(attention_backward_kernel<T>, smem, &configured)) return e;
+  attention_backward_kernel<T><<<B * H, kThreads, smem, s>>>(qkv, g, dqkv, S, D, H);
   if (const cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
   // 3. dx = cast_T(cast_T(dqkv) @ W^T); dW = x^T @ cast_T(dqkv); db = colsum(dqkv)
   const Mat<float, T> dqkv_t{dqkv, d3};

@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # reset_launch_counts before a run whose launches are to be counted)
 LAUNCHES = {"fused_qkv_attention": 0, "fused_mlp_block": 0,
             "fused_qkv_attention_bwd": 0, "fused_mlp_block_bwd": 0,
-            "mahalanobis_logits": 0, "fused_dw_act": 0}
+            "mahalanobis_logits": 0, "fused_dw_act": 0,
+            "tiny_attention": 0, "tiny_attention_bwd": 0}
 
 # rows per partial sum of the backward kernels' column sums (kSumRows in
 # csrc/common.cuh): their workspace holds ceil(rows / COLSUM_ROWS) x N floats
@@ -57,6 +58,12 @@ _SIGNATURES = {
     # dln_g, dln_b, dw1, db1, dw2, db2, rows, D, hidden, eps, stream
     "orbit_fused_mlp_block_bwd_f32": [_P] * 20 + [_I, _I, _I, _F, _P],
     "orbit_fused_mlp_block_bwd_bf16": [_P] * 20 + [_I, _I, _I, _F, _P],
+    # qkv, out, B, S, D, H, stream
+    "orbit_tiny_attention_f32": [_P, _P, _I, _I, _I, _I, _P],
+    "orbit_tiny_attention_bf16": [_P, _P, _I, _I, _I, _I, _P],
+    # qkv, g, dqkv, B, S, D, H, stream
+    "orbit_tiny_attention_bwd_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "orbit_tiny_attention_bwd_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
     # f, mu, P, class_mask, partial, out, M, D, C, scale, stream
     "orbit_mahalanobis_logits": [_P] * 6 + [_I, _I, _I, _F, _P],
     # x, taps, a1, b1, a2, b2, out, N, H, W, C, K, pad_top, pad_left, act1,

@@ -24,12 +24,13 @@ recogniser. Differences from the JAX learner:
   ``task_macs_to_personalise`` and the log says so.
 Not ported yet, and refused with an error: ``--data_parallel``/
 ``--task_parallel`` > 1, ``--profile_dir``, ``--pretrained_extractor_path``,
-the ``linear`` head, FiLM on the ViTs, and in the train modes
-``--adapt_features``, the ``versa``/``mahalanobis`` heads and
-``--learn_extractor`` on an EfficientNet (FiLM meta-training and masked
-BatchNorm statistics are a later slice). ``--mode test`` runs CNAPs
-(``--adapt_features --classifier versa``) and SimpleCNAPs
-(``--adapt_features --classifier mahalanobis``) on the EfficientNets.
+the ``linear`` head, FiLM (``--adapt_features``) on the ViTs, and in the
+train modes ``--learn_extractor`` on an EfficientNet (masked BatchNorm batch
+statistics are a later slice). Every mode runs CNAPs (``--adapt_features
+--classifier versa``) and SimpleCNAPs (``--adapt_features --classifier
+mahalanobis``) on the EfficientNets: meta-training updates the set
+encoder, the FiLM generator and the Versa processors with the extractor
+frozen and its BatchNorms in eval mode, with or without LITE.
 """
 from __future__ import annotations
 
@@ -71,14 +72,9 @@ def check_ported(args) -> None:
     effnet = args.feature_extractor.startswith("efficientnet")
     if args.adapt_features and not effnet:
         refused.append(f"--adapt_features on {args.feature_extractor}")
-    if "train" in args.mode:
-        later = " (a later slice: FiLM meta-training, masked BatchNorm statistics)"
-        if args.adapt_features:
-            refused.append(f"--adapt_features in --mode {args.mode}{later}")
-        if args.classifier in ("versa", "mahalanobis"):
-            refused.append(f"--classifier {args.classifier} in --mode {args.mode}{later}")
-        if args.learn_extractor and effnet:
-            refused.append(f"--learn_extractor on {args.feature_extractor}{later}")
+    if "train" in args.mode and args.learn_extractor and effnet:
+        refused.append(f"--learn_extractor on {args.feature_extractor} (a later slice: "
+                       f"masked BatchNorm batch statistics)")
     for flag in ("profile_dir", "pretrained_extractor_path"):
         if getattr(args, flag, None):
             refused.append(f"--{flag}")

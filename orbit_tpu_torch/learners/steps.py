@@ -9,11 +9,17 @@ one optimiser update every ``tasks_per_batch`` tasks
 (:func:`build_apply_update`), as the JAX learner accumulates its returned
 gradient trees. A step returns ``(loss, target_logits)``.
 
+The loss carries the FiLM generator's L2 term weighted by
+``FILM_REG_WEIGHT`` (single-step-learner.py:204,233), zero without FiLM.
+
 LITE (reference: few_shot_recognisers.py:328-437): the context is embedded
-once per task without a graph (the cache); per target batch a fresh random
-subset of ``num_lite_samples`` context clips, valid rows first, is
-re-embedded with gradients and scattered into the cache, and that batch's
-loss is ``n_ctx/(num_lite·tasks_per_batch)·CE``. The batch boundaries are
+once per task without a graph (the caches of
+``SingleStepFewShotRecogniser.lite_caches``: with FiLM the set encoder's
+reps and the features under the cached FiLM values); per target batch a
+fresh random subset of ``num_lite_samples`` context clips, valid rows
+first, is re-embedded with gradients and scattered into the caches
+(``personalise_with_lite``), and that batch's loss is
+``n_ctx/(num_lite·tasks_per_batch)·CE + FILM_REG_WEIGHT·film_l2``. The batch boundaries are
 the JAX package's (full ``batch_size`` batches, the remainder last). Eager
 torch runs each batch at its real size: the target rows after the last
 real one (the episode's bucket padding) are not run, so the tail batch is
@@ -27,7 +33,10 @@ cannot be reproduced, so tests inject them (``grad_idxs``).
 An all-padding episode contributes zero loss and no gradient. With nothing
 trainable (a frozen extractor and the proto heads) no graph is built and no
 backward runs; :func:`build_apply_update` then feeds the optimiser the zero
-gradients that the JAX step returns.
+gradients that the JAX step returns, for the trainable parameters only: a
+frozen extractor (``requires_grad`` off) is left out of the update and
+keeps its bits, as the reference's frozen parameters do. (The JAX step
+returns zeros for it, and its optax chain's weight decay then moves it.)
 """
 from __future__ import annotations
 
@@ -38,6 +47,8 @@ import torch
 
 from orbit_tpu_torch.models.recognisers import SingleStepFewShotRecogniser
 from orbit_tpu_torch.utils.optim import cross_entropy
+
+FILM_REG_WEIGHT = 0.001  # reference: single-step-learner.py:204,233
 
 Episode = Dict[str, torch.Tensor]
 
@@ -60,8 +71,9 @@ def _rows_to_run(target_mask: torch.Tensor) -> int:
 
 def build_train_task(recogniser: SingleStepFewShotRecogniser, args) -> Callable:
     """Non-LITE meta-training step: personalise on the context with
-    gradients, predict the target, loss = CE/tasks_per_batch
-    (single-step-learner.py:196-210). Returns fn(episode) -> (loss, logits)."""
+    gradients, predict the target, loss = CE/tasks_per_batch +
+    FILM_REG_WEIGHT·film_l2 (single-step-learner.py:196-210). Returns
+    fn(episode) -> (loss, logits)."""
     tasks_per_batch = args.tasks_per_batch
 
     def train_task(episode: Episode, generator: Optional[torch.Generator] = None):
@@ -78,8 +90,9 @@ def build_train_task(recogniser: SingleStepFewShotRecogniser, args) -> Callable:
             logits = recogniser.predict(state, episode["target_clips"][:m],
                                         class_mask=episode["class_mask"],
                                         with_grad=True)
-            loss = cross_entropy(logits, episode["target_labels"][:m],
-                                 episode["target_mask"][:m]) / tasks_per_batch
+            loss = (cross_entropy(logits, episode["target_labels"][:m],
+                                  episode["target_mask"][:m]) / tasks_per_batch
+                    + FILM_REG_WEIGHT * state["film_l2"])
         if loss.requires_grad:
             loss.backward()
         return loss.detach(), logits.detach()
@@ -117,8 +130,7 @@ def build_train_task_lite(recogniser: SingleStepFewShotRecogniser, args) -> Call
         if grad_idxs is not None and len(grad_idxs) != nb:
             raise ValueError(f"{len(grad_idxs)} injected subsets for {nb} target batches")
         trainable = _trainable(recogniser)
-        # the per-task cache: every context clip, no graph
-        feats_cache = recogniser.embed_clips(ctx, with_grad=False)
+        caches = recogniser.lite_caches(ctx, ctx_mask)  # per task, no graph
         scaling = ctx_mask.float().sum() / (num_lite * tasks_per_batch)
 
         loss_total = torch.zeros((), device=ctx.device)
@@ -128,17 +140,14 @@ def build_train_task_lite(recogniser: SingleStepFewShotRecogniser, args) -> Call
             tgt_mask = episode["target_mask"][rows]
             idx = (grad_idxs[i] if grad_idxs is not None
                    else lite_grad_subset(generator, ctx_mask, num_lite))
-            idx = idx.to(device=ctx.device, dtype=torch.long)
             real = _is_real(tgt_mask)
             with torch.set_grad_enabled(trainable):
-                grad_feats = recogniser.embed_clips(ctx[idx], with_grad=True)
-                feats = feats_cache.index_copy(0, idx, grad_feats)
-                head = recogniser.configure_head(feats, labels, ctx_mask,
-                                                 class_mask.shape[0])
-                tgt_feats = recogniser.embed_clips(tgt[rows], with_grad=True)
-                logits = recogniser.head_logits(head, tgt_feats, class_mask)
+                state = recogniser.personalise_with_lite(ctx, labels, ctx_mask,
+                                                         class_mask.shape[0], idx, caches)
+                logits = recogniser.predict(state, tgt[rows], class_mask, with_grad=True)
                 loss = float(real) * (scaling * cross_entropy(
-                    logits, episode["target_labels"][rows], tgt_mask))
+                    logits, episode["target_labels"][rows], tgt_mask)
+                    + FILM_REG_WEIGHT * state["film_l2"])
             if real and loss.requires_grad:
                 loss.backward()
             loss_total += loss.detach()
@@ -152,13 +161,15 @@ def build_train_task_lite(recogniser: SingleStepFewShotRecogniser, args) -> Call
 
 def build_apply_update(optimizer: torch.optim.Optimizer) -> Callable[[], None]:
     """One optimiser update from the accumulated ``.grad``, then clear it.
-    A parameter that received no gradient gets zeros first, as the JAX step
-    returns them (so Adam's weight decay and step count match)."""
+    A trainable parameter that received no gradient gets zeros first, as
+    the JAX step returns them (so Adam's weight decay and step count
+    match); a frozen one (``requires_grad`` off) keeps no gradient, so the
+    optimiser skips it and it keeps its bits."""
 
     def apply_update():
         for group in optimizer.param_groups:
             for p in group["params"]:
-                if p.grad is None:
+                if p.grad is None and p.requires_grad:
                     p.grad = torch.zeros_like(p)
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)

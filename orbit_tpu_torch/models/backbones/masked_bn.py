@@ -14,7 +14,10 @@ Parameters keep the Flax names: ``scale`` and ``bias`` (f32 parameters),
 
 ``film`` (a dict keyed by the extractor's dotted parameter names, e.g.
 ``blocks_1_0.bn2.scale``) overrides scale and bias for one call; the module
-never mutates its parameters. Batch statistics (``train=True``, the
+never mutates its parameters. FiLM meta-training differentiates through
+both routes: the f32 fold, and the forward's rounding of the affine to the
+compute dtype (autograd's cast rounds the gradient back the same way, as
+JAX's transpose of the cast does). Batch statistics (``train=True``, the
 meta-training of ``--learn_extractor`` on an EfficientNet, with the row mask
 of padded episodes) are a later slice and raise.
 """

@@ -12,6 +12,8 @@ Mahalanobis logits go through ``ops.mahalanobis_logits`` (TPU kernel #7 on
 the card); its per-class precisions are a batched ``torch.linalg.inv`` in
 f32, which the JAX package also leaves to XLA. The JAX head's
 ``task_mean`` and ``task_precision`` are not computed: nothing reads them.
+Meta-training differentiates every head with autograd: through the
+Versa processors, the batched inverse and the Mahalanobis op's backward.
 """
 from __future__ import annotations
 

@@ -24,10 +24,17 @@ few_shot_recognisers.py:313-326,361-386,439-451): ``personalise`` first
 embeds every context frame with the DeepSets set encoder (chunked at
 ``batch_size``, f32), takes the masked mean over the real context frames,
 generates the FiLM values from it, and hands them to every extractor call
-of the task as per-call overrides; the task state is ``{"film", "head"}``.
-FiLM runs on the EfficientNets in eval mode; FiLM on the ViTs and FiLM
-meta-training are not ported yet and raise. Not ported either: the
-``linear`` head (the FineTuner's).
+of the task as per-call overrides; the task state is ``{"film", "head",
+"film_l2"}``, the last the generator's L2 term that meta-training weights
+into the loss. FiLM runs on the EfficientNets with eval BatchNorm, in the
+protocol and in meta-training, where the gradient reaches the set encoder
+and the generator through the FiLM values (the extractor itself is frozen
+by the learner). ``personalise_with_lite`` is LITE's personalise
+(few_shot_recognisers.py:328-343,388-437): the set encoder's reps and the
+context features come from per-task no-grad caches
+(:meth:`lite_caches`), and only a subset of context clips is recomputed
+with gradients and scattered in. Not ported: FiLM on the ViTs (it raises)
+and the ``linear`` head (the FineTuner's).
 """
 from __future__ import annotations
 
@@ -148,19 +155,27 @@ class SingleStepFewShotRecogniser(nn.Module):
         return mean_pool_clips(feats, t)
 
     # ------------------------------------------------------ set encoding ----
+    def encode_set_clips(self, clips: torch.Tensor) -> torch.Tensor:
+        """(N, T, H, W, 3) -> (N, T, 64) f32 reps of the DeepSets set
+        encoder, one per frame, ``batch_size`` frames at a time."""
+        n, t = clips.shape[:2]
+        frames, b = clips.reshape(n * t, *clips.shape[2:]), self.batch_size
+        return torch.cat([self.set_encoder(self._maybe_normalize(frames[i:i + b]))
+                          for i in range(0, n * t, b)]).reshape(n, t, -1)
+
+    @staticmethod
+    def masked_set_mean(reps: torch.Tensor, clip_mask: torch.Tensor) -> torch.Tensor:
+        """Mean of (N, T, 64) per-frame reps over the real clips' frames."""
+        frame_mask = clip_mask.float()[:, None, None].expand(*reps.shape[:2], 1)
+        total = torch.clamp(frame_mask.sum(), min=1.0)
+        return (reps * frame_mask).sum(dim=(0, 1)) / total
+
     def task_embedding(self, context_clips: torch.Tensor,
                        clip_mask: torch.Tensor) -> torch.Tensor:
         """Masked mean of the set encoder's 64-d reps over the real context
-        frames, ``batch_size`` frames at a time (reference:
-        _get_task_embedding_in_batches, few_shot_recognisers.py:361-386)."""
-        n, t = context_clips.shape[:2]
-        frames = context_clips.reshape(n * t, *context_clips.shape[2:])
-        b = self.batch_size
-        reps = torch.cat([self.set_encoder(self._maybe_normalize(frames[i:i + b]))
-                          for i in range(0, n * t, b)])
-        frame_mask = clip_mask.float().repeat_interleave(t)
-        total = torch.clamp(frame_mask.sum(), min=1.0)
-        return (reps * frame_mask[:, None]).sum(dim=0) / total
+        frames (reference: _get_task_embedding_in_batches,
+        few_shot_recognisers.py:361-386)."""
+        return self.masked_set_mean(self.encode_set_clips(context_clips), clip_mask)
 
     def generate_film(self, task_embedding: torch.Tensor):
         """Task embedding -> (FiLM values by dotted leaf name, L2 term of
@@ -188,15 +203,56 @@ class SingleStepFewShotRecogniser(nn.Module):
                     num_classes: int, with_grad: bool = False) -> TaskState:
         """Task embedding -> FiLM (when ``adapt_features``) -> context
         features -> head (reference: personalise,
-        few_shot_recognisers.py:313-326)."""
-        film = None
+        few_shot_recognisers.py:313-326). ``with_grad`` records the
+        extractor's graph; the set encoder and the generator record one
+        whenever autograd does."""
+        film, film_l2 = None, torch.zeros((), device=context_clips.device)
         if self.adapt_features:
-            if with_grad:
-                raise NotImplementedError("FiLM meta-training: not ported yet, a "
-                                          "later slice of the port")
-            film, _ = self.generate_film(self.task_embedding(context_clips, context_mask))
+            film, film_l2 = self.generate_film(self.task_embedding(context_clips,
+                                                                   context_mask))
         feats = self.embed_clips(context_clips, with_grad, film)
-        return {"film": film,
+        return {"film": film, "film_l2": film_l2,
+                "head": self.configure_head(feats, context_labels, context_mask,
+                                            num_classes)}
+
+    def lite_caches(self, context_clips, context_mask) -> Dict[str, torch.Tensor]:
+        """LITE's per-task caches, computed without a graph (reference:
+        few_shot_recognisers.py:404-437): with FiLM, ``reps`` (N, T, 64),
+        the set encoder's reps of every context frame; and ``feats`` (N, D),
+        every context clip's features under the FiLM values of the cached
+        task embedding."""
+        caches, film = {}, None
+        with torch.no_grad():
+            if self.adapt_features:
+                caches["reps"] = self.encode_set_clips(context_clips)
+                film, _ = self.generate_film(self.masked_set_mean(caches["reps"],
+                                                                  context_mask))
+            caches["feats"] = self.embed_clips(context_clips, film=film)
+        return caches
+
+    def personalise_with_lite(self, context_clips, context_labels, context_mask,
+                              num_classes: int, grad_idxs: torch.Tensor,
+                              caches: Optional[Dict[str, torch.Tensor]] = None) -> TaskState:
+        """LITE personalise (reference: personalise_with_lite,
+        few_shot_recognisers.py:328-343,388-437): the context clips at
+        ``grad_idxs`` are recomputed with gradients and scattered into the
+        no-grad ``caches`` (:meth:`lite_caches`, computed here if not
+        given): with FiLM first their set-encoder reps, whose masked mean
+        generates the FiLM values, then their features under those values;
+        the head is configured on the mixed features. The meta-training
+        step computes the caches once per task and calls this once per
+        target batch (orbit_tpu/learners/steps.py:191-225)."""
+        if caches is None:
+            caches = self.lite_caches(context_clips, context_mask)
+        idx = grad_idxs.to(device=context_clips.device, dtype=torch.long)
+        subset = context_clips[idx]
+        film, film_l2 = None, torch.zeros((), device=context_clips.device)
+        if self.adapt_features:
+            reps = caches["reps"].index_copy(0, idx, self.encode_set_clips(subset))
+            film, film_l2 = self.generate_film(self.masked_set_mean(reps, context_mask))
+        grad_feats = self.embed_clips(subset, with_grad=True, film=film)
+        feats = caches["feats"].index_copy(0, idx, grad_feats)
+        return {"film": film, "film_l2": film_l2,
                 "head": self.configure_head(feats, context_labels, context_mask,
                                             num_classes)}
 

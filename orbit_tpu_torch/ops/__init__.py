@@ -4,7 +4,10 @@ from orbit_tpu_torch.ops.mahalanobis import mahalanobis_logits, mahalanobis_refe
 from orbit_tpu_torch.ops.mlp_block import (fused_mlp_block, fused_mlp_block_backward,
                                            mlp_block_backward_reference,
                                            mlp_block_reference)
-from orbit_tpu_torch.ops.tiny_attention import (fused_qkv_attention,
+# the raw-qkv attention op itself stays ``ops.tiny_attention.tiny_attention``:
+# a package attribute of that name would hide the module
+from orbit_tpu_torch.ops.tiny_attention import (attention_backward_reference,
+                                                attention_reference, fused_qkv_attention,
                                                 fused_qkv_attention_backward,
                                                 qkv_attention_backward_reference,
                                                 qkv_attention_reference)
@@ -13,4 +16,5 @@ __all__ = ["fused_dw_act", "fused_dw_reference", "mahalanobis_logits",
            "mahalanobis_reference", "fused_mlp_block", "fused_mlp_block_backward",
            "mlp_block_backward_reference", "mlp_block_reference", "fused_qkv_attention",
            "fused_qkv_attention_backward", "qkv_attention_backward_reference",
-           "qkv_attention_reference"]
+           "qkv_attention_reference", "attention_reference",
+           "attention_backward_reference"]

@@ -17,8 +17,16 @@ Dispatch: a CUDA tensor launches the hand-written kernel
 (:func:`fused_dw_reference`). ``impl="reference"`` forces the plain version
 and is meant for the tests and ``chip_smoke.py`` only. Stride 1 only, as
 the kernel: the EfficientNet's stride-2 depthwise layers stay a grouped
-convolution between BatchNorms, as the JAX blocks keep them. Forward only:
-the EfficientNet's eval path is its one caller.
+convolution between BatchNorms, as the JAX blocks keep them.
+
+Gradients: when autograd records, the op runs as a
+``torch.autograd.Function`` that saves its six inputs; its backward
+recomputes :func:`fused_dw_reference` from them under autograd and returns
+the gradients of x, w, a1, b1, a2 and b2 for the cotangent cast to x's
+dtype, as the JAX custom_vjp differentiates its XLA version
+(orbit_tpu/ops/depthwise.py:152-173). There is no backward kernel, on the
+TPU or here. FiLM meta-training reaches the FiLM values through a1, b1,
+a2 and b2, the folded BatchNorm affines.
 """
 from __future__ import annotations
 
@@ -95,13 +103,7 @@ def _launch(x, w, a1, b1, a2, b2, act1: bool, act2: bool) -> torch.Tensor:
     return out
 
 
-def fused_dw_act(x: torch.Tensor, w, a1, b1, a2, b2, *, act1: bool = True,
-                 act2: bool = True, impl: str | None = None) -> torch.Tensor:
-    """``act2(a2 * dwconv(act1(a1*x + b1), w, SAME, stride 1) + b2)``.
-
-    impl: None (the kernel for a CUDA tensor, the plain version for a CPU
-    tensor) or "reference" (the plain version on any device)."""
-    _check_shapes(x, w)
+def _forward(x, w, a1, b1, a2, b2, act1: bool, act2: bool, impl):
     if impl is not None and impl != "reference":
         raise ValueError(f"unknown impl {impl!r} (None or 'reference')")
     if impl == "reference" or x.device.type == "cpu":
@@ -109,3 +111,36 @@ def fused_dw_act(x: torch.Tensor, w, a1, b1, a2, b2, *, act1: bool = True,
     if x.device.type != "cuda":
         raise ValueError(f"fused_dw_act kernel needs a CUDA tensor, got {x.device}")
     return _launch(x, w, a1, b1, a2, b2, act1, act2)
+
+
+class _FusedDw(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, a1, b1, a2, b2, act1, act2, impl):
+        ctx.save_for_backward(x, w, a1, b1, a2, b2)
+        ctx.acts = (act1, act2)
+        return _forward(x, w, a1, b1, a2, b2, act1, act2, impl)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        needed = ctx.needs_input_grad[:6]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, needed)]
+            y = fused_dw_reference(*inputs, act1=ctx.acts[0], act2=ctx.acts[1])
+            wanted = [t for t, n in zip(inputs, needed) if n]
+            grads = iter(torch.autograd.grad(y, wanted, g.to(saved[0].dtype)))
+        return (*(next(grads) if n else None for n in needed), None, None, None)
+
+
+def fused_dw_act(x: torch.Tensor, w, a1, b1, a2, b2, *, act1: bool = True,
+                 act2: bool = True, impl: str | None = None) -> torch.Tensor:
+    """``act2(a2 * dwconv(act1(a1*x + b1), w, SAME, stride 1) + b2)``,
+    differentiable in all six inputs.
+
+    impl: None (the kernel for a CUDA tensor, the plain version for a CPU
+    tensor) or "reference" (the plain version on any device)."""
+    _check_shapes(x, w)
+    inputs = (x, w, a1, b1, a2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return _FusedDw.apply(*inputs, act1, act2, impl)
+    return _forward(*inputs, act1, act2, impl)

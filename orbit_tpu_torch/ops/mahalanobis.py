@@ -12,7 +12,12 @@ Dispatch: a CUDA tensor launches the hand-written kernel
 the plain version (:func:`mahalanobis_reference`, the JAX package's einsum
 form, orbit_tpu/ops/mahalanobis.py:172-176). ``impl="reference"`` forces
 the plain version and is meant for the tests and ``chip_smoke.py`` only.
-Forward only: the test path is its one caller.
+
+Gradients: when autograd records, the op runs as a
+``torch.autograd.Function`` that saves its inputs; its backward recomputes
+:func:`mahalanobis_reference` from them under autograd, as the JAX
+package's training path differentiates its einsum (:172-178); there is no
+backward kernel. Padded classes get zero gradient (the ``torch.where``).
 """
 from __future__ import annotations
 
@@ -78,17 +83,7 @@ def _launch(features, means, precisions, class_mask, logit_scale: float) -> torc
     return out
 
 
-def mahalanobis_logits(features: torch.Tensor, means: torch.Tensor,
-                       precisions: torch.Tensor,
-                       class_mask: Optional[torch.Tensor] = None,
-                       logit_scale: float = 1.0,
-                       impl: str | None = None) -> torch.Tensor:
-    """(M, D) features against (C, D)/(C, D, D) class statistics -> (M, C)
-    f32 logits.
-
-    impl: None (the kernel for a CUDA tensor, the plain version for a CPU
-    tensor) or "reference" (the plain version on any device)."""
-    _check_shapes(features, means, precisions)
+def _forward(features, means, precisions, class_mask, logit_scale, impl):
     if impl is not None and impl != "reference":
         raise ValueError(f"unknown impl {impl!r} (None or 'reference')")
     if impl == "reference" or features.device.type == "cpu":
@@ -97,3 +92,39 @@ def mahalanobis_logits(features: torch.Tensor, means: torch.Tensor,
         raise ValueError(f"mahalanobis_logits kernel needs a CUDA tensor, got "
                          f"{features.device}")
     return _launch(features, means, precisions, class_mask, logit_scale)
+
+
+class _MahalanobisLogits(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, features, means, precisions, class_mask, logit_scale, impl):
+        ctx.save_for_backward(features, means, precisions, class_mask)
+        ctx.logit_scale = logit_scale
+        return _forward(features, means, precisions, class_mask, logit_scale, impl)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        needed = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n) for t, n in zip(saved[:3], needed)]
+            logits = mahalanobis_reference(*inputs, saved[3], ctx.logit_scale)
+            wanted = [t for t, n in zip(inputs, needed) if n]
+            grads = iter(torch.autograd.grad(logits, wanted, g.float()))
+        return (*(next(grads) if n else None for n in needed), None, None, None)
+
+
+def mahalanobis_logits(features: torch.Tensor, means: torch.Tensor,
+                       precisions: torch.Tensor,
+                       class_mask: Optional[torch.Tensor] = None,
+                       logit_scale: float = 1.0,
+                       impl: str | None = None) -> torch.Tensor:
+    """(M, D) features against (C, D)/(C, D, D) class statistics -> (M, C)
+    f32 logits, differentiable in features, means and precisions.
+
+    impl: None (the kernel for a CUDA tensor, the plain version for a CPU
+    tensor) or "reference" (the plain version on any device)."""
+    _check_shapes(features, means, precisions)
+    inputs = (features, means, precisions)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return _MahalanobisLogits.apply(*inputs, class_mask, logit_scale, impl)
+    return _forward(*inputs, class_mask, logit_scale, impl)

@@ -7,7 +7,8 @@
 - ``make_lr_schedule``: pure Python, copied from the JAX package.
 - ``init_optimizer``: ``torch.optim.Adam`` or ``SGD`` with two parameter
   groups, the extractor's at ``extractor_lr_scale`` times the learning
-  rate. Weight decay is L2 folded into the gradient before the moments,
+  rate, and the rest (set encoder, FiLM generator, Versa processors) at
+  the rate. Weight decay is L2 folded into the gradient before the moments,
   torch's own Adam semantics, which the JAX package maps onto optax
   (``add_decayed_weights`` then ``scale_by_adam``).
 - ``set_learning_rate`` / ``get_curr_learning_rates``: the epoch's rate.

@@ -8,9 +8,10 @@ are compared with the JAX ops run as the JAX suite runs them on the CPU:
 the JAX ops' ``jax.vjp``. Inputs are made with numpy from a seed and fed to
 both.
 Tests marked ``cuda`` compare each kernel with its plain version on the
-card at the path's shapes (the ViTs for kernels A, B, #4 and #6,
-EfficientNet-B0 for the depthwise tail #8, SimpleCNAPs for the Mahalanobis
-logits #7); they skip without one. JAX is imported only inside
+card at the path's shapes (the ViTs for kernels A, B, #4 and #6, and for
+the attention on a raw qkv, #1 and #2; EfficientNet-B0 for the depthwise
+tail #8, SimpleCNAPs for the Mahalanobis logits #7); they skip without
+one. JAX is imported only inside
 the JAX comparisons, so the ``cuda`` tests also run where JAX is absent:
 ``python -m pytest --noconftest tests/test_torch_ops.py -m cuda``.
 
@@ -34,7 +35,11 @@ Tolerances:
   are sums over all B*S rows, with many terms near zero). f32: summation
   order only, 1e-5. bf16: both sides round qkv, p, ds, dqkv, xn, hg and
   dhpre at the same points, and a one-ulp flip of one element feeds the
-  later sums: 2^-6, as for the outputs.
+  later sums: 2^-6, as for the outputs. The same limits hold the
+  gradients of the depthwise tail (both sides differentiate the plain
+  version with the same casts; bf16 rounds the cotangent of the activated
+  input and of the taps where both cast) and of the Mahalanobis logits
+  (f32; the port's explicit products against XLA's einsum transpose).
 """
 from __future__ import annotations
 
@@ -43,14 +48,15 @@ import pytest
 import torch
 
 from orbit_tpu_torch.kernels import build as kbuild
-from orbit_tpu_torch.ops import (fused_dw_act, fused_mlp_block, fused_mlp_block_backward,
-                                 fused_qkv_attention, fused_qkv_attention_backward,
-                                 mahalanobis_logits, mlp_block_reference,
-                                 qkv_attention_reference)
+from orbit_tpu_torch.ops import (attention_reference, fused_dw_act, fused_mlp_block,
+                                 fused_mlp_block_backward, fused_qkv_attention,
+                                 fused_qkv_attention_backward, mahalanobis_logits,
+                                 mlp_block_reference, qkv_attention_reference)
 from orbit_tpu_torch.ops import depthwise as dw_mod
 from orbit_tpu_torch.ops import mahalanobis as maha_mod
 from orbit_tpu_torch.ops import mlp_block as mlp_mod
 from orbit_tpu_torch.ops import tiny_attention as attn_mod
+from orbit_tpu_torch.ops.tiny_attention import tiny_attention, tiny_attention_backward
 
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
        "bfloat16": dict(rtol=2.0 ** -6, atol=2.0 ** -6)}
@@ -254,6 +260,76 @@ def test_mahalanobis_matches_jax(jax_impl):
     _close_to_max(ours[:, :-1], ref[:, :-1], MAHALANOBIS_TOL)
 
 
+# the attention on a raw qkv (#1 and #2) at n = 5 (ragged against the TPU
+# kernel's 8-row block), s = 50, d = 128 in 2 heads of 64, as
+# tests/test_tiny_attention.py runs the JAX op
+ATTENTION_CASES = [("float32", "interpret"), ("float32", "xla"), ("bfloat16", "interpret")]
+
+
+def _raw_qkv(n, s, d, seed=0):
+    return (0.5 * np.random.default_rng(seed).standard_normal((n, s, 3 * d))).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype,jax_impl", ATTENTION_CASES)
+def test_tiny_attention_matches_jax(dtype, jax_impl):
+    from orbit_tpu.ops.tiny_attention import tiny_attention as jax_op
+    qkv = _raw_qkv(5, 50, 128)
+    ref = jax_op(_jax_arrays([qkv], dtype)[0], 2, impl=jax_impl)
+    ours = tiny_attention(_torch([qkv], getattr(torch, dtype))[0], 2)
+    assert ours.dtype == getattr(torch, dtype) and ours.shape == (5, 50, 128)
+    _close(ours, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tiny_attention_backward_matches_jax(dtype):
+    """dqkv against the TPU backward kernel's body (interpret), in the dtype."""
+    from orbit_tpu.ops.tiny_attention import tiny_attention as jax_op
+    qkv = _raw_qkv(5, 50, 128, seed=1)
+    cot = np.random.default_rng(2).standard_normal((5, 50, 128)).astype(np.float32)
+    refs = _jax_vjp(lambda t: jax_op(t, 2, impl="interpret"), _jax_arrays([qkv], dtype),
+                    _jax_arrays([cot], dtype)[0])
+    t = _torch([qkv], getattr(torch, dtype))[0].requires_grad_()
+    tiny_attention(t, 2).backward(_torch([cot], getattr(torch, dtype))[0])
+    assert t.grad.dtype == t.dtype
+    _grads_close([t.grad], refs, dtype)
+
+
+@pytest.mark.parametrize("h,k,act1", [(9, 5, True), (8, 3, False)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_dw_backward_matches_jax(dtype, h, k, act1):
+    """The gradients of all six inputs against ``jax.vjp`` of the JAX op on
+    its TPU kernel's path (interpret), whose custom_vjp differentiates the
+    XLA version; x and the cotangent in the dtype, the taps and affines f32."""
+    from orbit_tpu.ops.depthwise import fused_dw_act as jax_op
+    arrays = _dw_inputs(2, h, 16, k, seed=h + k + 1)
+    cot = np.random.default_rng(h).standard_normal((2, h, h, 16)).astype(np.float32)
+    keep = (1, 2, 3, 4, 5)
+    refs = _jax_vjp(lambda *a: jax_op(*a, stride=1, act1=act1, act2=True, impl="interpret"),
+                    _jax_arrays(arrays, dtype, keep_f32=keep), _jax_arrays([cot], dtype)[0])
+    inputs = [t.requires_grad_() for t in _torch(arrays, getattr(torch, dtype), keep_f32=keep)]
+    fused_dw_act(*inputs, act1=act1, act2=True).backward(_torch([cot], getattr(torch, dtype))[0])
+    assert inputs[0].grad.dtype == inputs[0].dtype
+    _grads_close([t.grad for t in inputs], refs, dtype)
+
+
+def test_mahalanobis_backward_matches_jax():
+    """The gradients of features, means and precisions (the padded class's
+    zero) against ``jax.vjp`` of the JAX op's einsum (the JAX package's
+    training path), f32."""
+    from orbit_tpu.ops.mahalanobis import mahalanobis_logits as jax_op
+    arrays = _maha_inputs(24, 128, 5, seed=3)
+    cot = np.random.default_rng(4).standard_normal((24, 5)).astype(np.float32)
+    jf, jm, jp, jmask = _jax_arrays(arrays, "float32")
+    refs = _jax_vjp(lambda f, m, p: jax_op(f, m, p, class_mask=jmask, logit_scale=0.5,
+                                           force="xla"), (jf, jm, jp), _jax_arrays([cot],
+                                                                               "float32")[0])
+    f, mu, p, mask = _torch(arrays, torch.float32)
+    inputs = [t.requires_grad_() for t in (f, mu, p)]
+    mahalanobis_logits(*inputs, mask, logit_scale=0.5).backward(torch.from_numpy(cot))
+    assert (mu.grad[-1] == 0).all() and (p.grad[-1] == 0).all()
+    _grads_close([t.grad for t in inputs], refs, "float32")
+
+
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     def no_kernel(*a, **k):
         raise AssertionError("a CPU tensor reached the kernel launcher")
@@ -271,6 +347,11 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     assert torch.equal(fused_dw_act(*d), dw_mod.fused_dw_reference(*d, act1=True, act2=True))
     h = _torch(_maha_inputs(3, 16, 2), torch.float32)
     assert torch.equal(mahalanobis_logits(*h), maha_mod.mahalanobis_reference(*h))
+    monkeypatch.setattr(attn_mod, "_launch_attention", no_kernel)
+    monkeypatch.setattr(attn_mod, "_launch_attention_backward", no_kernel)
+    r = torch.from_numpy(_raw_qkv(2, 7, 128)).requires_grad_()
+    assert torch.equal(tiny_attention(r, 2), attention_reference(r, 2))
+    tiny_attention(r, 2).sum().backward()
     assert kbuild.LAUNCHES == before
 
 
@@ -295,6 +376,13 @@ def test_kernel_impl_needs_a_cuda_tensor():
         mahalanobis_logits(*h)
     with pytest.raises(ValueError, match="unknown impl"):
         fused_dw_act(*d, impl="interpret")
+    r = torch.empty((2, 5, 384), device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tiny_attention(r, 2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tiny_attention_backward(r, torch.empty((2, 5, 128), device="meta"), 2)
+    with pytest.raises(ValueError, match="unknown impl"):
+        tiny_attention(r, 2, impl="xla")
 
 
 def test_shape_errors_raise():
@@ -316,6 +404,16 @@ def test_shape_errors_raise():
     f, mu, p, mask = _torch(_maha_inputs(3, 16, 2), torch.float32)
     with pytest.raises(ValueError, match="do not match"):
         mahalanobis_logits(f, mu, p[:, :-1], mask)
+    with pytest.raises(ValueError, match="divisible"):
+        tiny_attention(torch.zeros(2, 5, 100), 2)
+    # the kernels take head dim 64 and S <= 64 only, and refuse the rest
+    # before they build or launch anything (a meta tensor reaches the check)
+    for shape, heads in (((2, 5, 192), 2), ((2, 65, 384), 2)):
+        with pytest.raises(ValueError, match="head dim 64"):
+            attn_mod._launch_attention(torch.empty(shape, device="meta"), heads)
+    with pytest.raises(ValueError, match="cotangent shape"):
+        attn_mod._launch_attention_backward(torch.empty((2, 5, 384), device="meta"),
+                                            torch.empty((2, 5, 64), device="meta"), 2)
 
 
 # ------------------------------------- CUDA kernels vs plain (card) ----
@@ -466,3 +564,67 @@ def test_mahalanobis_kernel_matches_plain(cuda_device, m, c, real):
     assert torch.equal(ours, again)  # no atomics
     assert (ours[:, real:] == -1e30).all()
     _close_to_max(ours[:, :real].cpu(), ref[:, :real].cpu().numpy(), MAHALANOBIS_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", VIT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_tiny_attention_kernels_match_plain(cuda_device, dtype, shape):
+    """#1 and #2 against their plain versions: outputs, launches, and the
+    same bits on a repeat."""
+    b, s, d, h = shape
+    dt = getattr(torch, dtype)
+    qkv = torch.from_numpy(_raw_qkv(b, s, d, seed=5)).to(cuda_device, dt)
+    cot = torch.randn(b, s, d, device=cuda_device).to(dt)
+    n0 = dict(kbuild.LAUNCHES)
+    ours, dqkv = tiny_attention(qkv, h), tiny_attention_backward(qkv, cot, h)
+    assert kbuild.LAUNCHES["tiny_attention"] == n0["tiny_attention"] + 1
+    assert kbuild.LAUNCHES["tiny_attention_bwd"] == n0["tiny_attention_bwd"] + 1
+    again = (tiny_attention(qkv, h), tiny_attention_backward(qkv, cot, h))
+    ref = tiny_attention(qkv, h, impl="reference")
+    dref = tiny_attention_backward(qkv, cot, h, impl="reference")
+    torch.cuda.synchronize()
+    assert torch.equal(ours, again[0]) and torch.equal(dqkv, again[1])
+    assert ours.dtype == dqkv.dtype == dt
+    np.testing.assert_allclose(ours.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               **TOL[dtype])
+    _grads_close([dqkv.cpu()], [dref.float().cpu().numpy()], dtype)
+
+
+@pytest.mark.cuda
+def test_tiny_attention_kernels_refuse_other_shapes(cuda_device):
+    for shape, heads in (((2, 5, 192), 2), ((2, 65, 384), 2)):
+        with pytest.raises(ValueError, match="head dim 64"):
+            tiny_attention(torch.zeros(shape, device=cuda_device), heads)
+
+
+@pytest.mark.cuda
+def test_autograd_through_the_forward_only_kernels(cuda_device):
+    """#8 and #7 have no backward kernel: under autograd the forward runs
+    the kernel and the backward differentiates the plain version, so the
+    gradients equal those of the plain route; #1's op runs #2 backward."""
+    d = [t.requires_grad_() for t in _torch(_dw_inputs(3, 14, 32, 5, seed=11), torch.bfloat16,
+                                           keep_f32=(1, 2, 3, 4, 5), device=cuda_device)]
+    h = [t.requires_grad_() for t in _torch(_maha_inputs(40, 256, 5, seed=12),
+                                           torch.float32, device=cuda_device)[:3]]
+    mask = (torch.arange(5, device=cuda_device) < 4).float()
+    r = torch.from_numpy(_raw_qkv(3, 50, 128)).to(cuda_device).requires_grad_()
+    grads = {}
+    for impl in (None, "reference"):
+        before = dict(kbuild.LAUNCHES)
+        loss = (fused_dw_act(*d, impl=impl).float().square().sum()
+                + mahalanobis_logits(*h, mask, 0.5, impl=impl)[:, :4].sum()
+                + tiny_attention(r, 2, impl=impl).square().sum())
+        grads[impl] = torch.autograd.grad(loss, [*d, *h, r])
+        launched = {n: kbuild.LAUNCHES[n] - before[n] for n in before}
+        expected = 1 if impl is None else 0
+        for name in ("fused_dw_act", "mahalanobis_logits", "tiny_attention",
+                     "tiny_attention_bwd"):
+            assert launched[name] == expected, name
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dw", "maha", "attention"), (grads[None][:6], grads[None][6:9],
+                                                         grads[None][9:]),
+                          (grads["reference"][:6], grads["reference"][6:9],
+                           grads["reference"][9:])):
+        tol = "bfloat16" if name == "dw" else "float32"
+        _grads_close([t.cpu() for t in a], [t.float().cpu().numpy() for t in b], tol)
