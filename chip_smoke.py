@@ -6,7 +6,9 @@
 
 Phases, each of which passes or raises:
 1. card: the ``nvidia-smi`` name and power limit;
-2. build: the CUDA kernels from ``orbit_tpu_torch/csrc``, timed;
+2. build: the CUDA kernels from ``orbit_tpu_torch/csrc``, timed, and the
+   registers and spills of the kernels of A's and B's bf16 wgmma routes
+   (from nvcc's ``-Xptxas -v`` log);
 3. kernels: kernel A (fused qkv attention), kernel B (fused MLP block) and
    their backward kernels against their plain PyTorch versions on the card,
    at the ViT-B/32 and ViT-S/32 shapes (B = 256 and a ragged 13, S = 50), in
@@ -19,7 +21,11 @@ Phases, each of which passes or raises:
    and 13, f32 and bf16), also timed against
    ``F.scaled_dot_product_attention`` and its backward; each timed with
    CUDA events at B = 256 and at #7's path shape, beside its bound, and
-   repeated to show that a second call gives the same bits;
+   repeated to show that a second call gives the same bits; beside A and B
+   cuBLAS bf16 on their products alone (x @ W; xn @ W1 and h @ W2), a
+   yardstick the port never calls; and A, B, #4 and #6 timed at the ViT
+   train path's other batch sizes (44, the ragged target batch, and 16,
+   the LITE grad subset);
 4. ViT path: the CLU-VE test protocol of the port's single-step learner on
    ViT-B/32 at full width (224 px, 12 layers, D = 768; random weights from
    ``--seed``), bf16 compute, proto head, batch 256, over two synthetic
@@ -75,7 +81,9 @@ Phases, each of which passes or raises:
 The line before the last is ``{"kernels": [...]}`` (launches: kernels A and
 B from phase 4, #4 and #6 from phase 5, #7 and #8 from phase 6; #1 and #2
 are on no path and report their launches over phases 4 to 7 together,
-which must be 0; their checks and times are phase 3's); the
+which must be 0; their checks and times are phase 3's; ``launches_by_path``
+gives every kernel's launches on each path, ``gemm_ms`` the cuBLAS
+yardstick of A and B); the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
 """
@@ -181,6 +189,33 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 
 
+# the kernels of the bf16 wgmma routes of A and B (csrc/wgmma.cuh), whose
+# registers and spills phase 2 prints from nvcc's -Xptxas -v output
+WGMMA_KERNELS = ("fused_qkv_attention_wgmma_kernel", "fused_mlp_block_layernorm_kernel",
+                 "fused_mlp_block_gemm_kernel")
+
+
+def print_registers(log: Path, names) -> None:
+    """Registers, spills and stack of every entry function in nvcc's log
+    whose name contains one of ``names`` (one line per instantiation)."""
+    import re
+    lines = log.read_text().splitlines() if log.exists() else []
+    seen = set()
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        name = next((n for n in names if m and n in m.group(1)), None)
+        if name is None or m.group(1) in seen:
+            continue
+        seen.add(m.group(1))
+        # the template argument: LayerNorm's width, or fc1's or fc2's epilogue
+        arg = re.search(r"ILi(\d+)E|(GeluStore|ResidualStore)", m.group(1))
+        info = " ".join(x.split("ptxas info    : ")[-1].strip() for x in lines[i + 1:i + 4]
+                        if "bytes stack" in x or "Used" in x)
+        print(f"  {name}{f'<{arg.group(1) or arg.group(2)}>' if arg else ''}: {info}")
+    if not seen:
+        print(f"  registers: no entry in {log} (nvcc's log not found)")
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -203,6 +238,24 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def cuda_ms_back_to_back(fn, calls: int = 20, warmup: int = 3) -> float:
+    """Milliseconds a call of ``fn`` over ``calls`` calls enqueued back to
+    back between two CUDA events, as the layers of a forward run: the
+    host's time before a call's first launch hides behind the previous
+    call's kernels, where ``cuda_ms``'s single calls include it."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def compare(ours, ref, rtol: float, atol: float, what: str):
@@ -404,9 +457,72 @@ def kernel_phase(torch, card: str) -> dict:
                         if vit == "vit_b_32" and dtype_name == "bfloat16":
                             rows[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                               bound_by=bound_by)
+                            if name in ("fused_qkv_attention", "fused_mlp_block"):
+                                with torch.inference_mode():
+                                    b2b = cuda_ms_back_to_back(lambda: run(None))
+                                line += f"; back to back {b2b:.4f} ms a call"
                     rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], max_abs)
                     print(line)
+                if vit == "vit_b_32" and dtype_name == "bfloat16" and b == 256:
+                    gemm_yardstick(torch, rows, x, qkv, mlp)
+    train_shapes_phase(torch, randn)
     return rows
+
+
+def gemm_yardstick(torch, rows: dict, x, qkv, mlp) -> None:
+    """cuBLAS bf16 on kernels A's and B's products alone, at their inputs
+    (x @ W for A; xn @ W1 and h @ W2 for B, xn and h from the staged plain
+    version): a yardstick of what the tensor cores give a library GEMM at
+    these shapes. The port never calls it."""
+    from orbit_tpu_torch.ops.mlp_block import mlp_block_stages
+    x2 = x.reshape(-1, x.shape[-1])
+    with torch.inference_mode():
+        xn, h, _ = mlp_block_stages(x, *mlp, ln_eps=1e-6)
+        xn, h = xn.reshape(x2.shape), h.reshape(x2.shape[0], -1)
+        w1, w2 = mlp[2].contiguous(), mlp[4].contiguous()
+        w = qkv[0].contiguous()
+        a_ms = cuda_ms(lambda: torch.matmul(x2, w))
+        fc1_ms = cuda_ms(lambda: torch.matmul(xn, w1))
+        fc2_ms = cuda_ms(lambda: torch.matmul(h, w2))
+    rows["fused_qkv_attention"]["gemm_ms"] = a_ms
+    rows["fused_mlp_block"]["gemm_ms"] = fc1_ms + fc2_ms
+    print(f"  cuBLAS bf16 yardstick (never called by the port), ViT-B/32 B=256: A's x @ W "
+          f"{a_ms:.4f} ms; B's xn @ W1 {fc1_ms:.4f} ms + h @ W2 {fc2_ms:.4f} ms = "
+          f"{fc1_ms + fc2_ms:.4f} ms")
+
+
+# the batch sizes besides 256 at which the ViT-B/32 train path runs kernels
+# A, B, #4 and #6: the ragged target batch (300 target clips: 256 + 44) and
+# the 16-clip LITE grad subset
+TRAIN_BATCHES = (44, 16)
+
+
+def train_shapes_phase(torch, randn) -> None:
+    """Phase 3, the ViT kernels' time per launch at the train path's other
+    batch sizes (bf16, ViT-B/32), beside their bounds: launches x (time -
+    bound) at each shape is the path's loss."""
+    from orbit_tpu_torch.ops import (fused_mlp_block, fused_mlp_block_backward,
+                                     fused_qkv_attention, fused_qkv_attention_backward)
+    d, heads, dt = 768, 12, torch.bfloat16
+    for b in TRAIN_BATCHES:
+        x, cot = randn(b, 50, d).to(dt), randn(b, 50, d).to(dt)
+        qkv = (randn(d, 3 * d, scale=d ** -0.5).to(dt), randn(3 * d, scale=0.1).to(dt))
+        mlp = (1 + randn(d, scale=0.1), randn(d, scale=0.1),
+               randn(d, 4 * d, scale=d ** -0.5).to(dt), randn(4 * d, scale=0.02),
+               randn(4 * d, d, scale=(4 * d) ** -0.5).to(dt), randn(d, scale=0.02))
+        runs = {"fused_qkv_attention": lambda: fused_qkv_attention(x, *qkv, heads),
+                "fused_mlp_block": lambda: fused_mlp_block(x, *mlp, ln_eps=1e-6),
+                "fused_qkv_attention_bwd": lambda: fused_qkv_attention_backward(
+                    x, *qkv, cot, heads),
+                "fused_mlp_block_bwd": lambda: fused_mlp_block_backward(
+                    x, *mlp[:5], cot, ln_eps=1e-6)}
+        parts = []
+        for name, run in runs.items():
+            with torch.inference_mode():
+                ms = cuda_ms(run)
+            bound_ms, bound_by = bound(name, b, 50, d, "bfloat16")
+            parts.append(f"{name} {ms:.4f} ms (bound {bound_ms:.4f}, {bound_by})")
+        print(f"  ViT-B/32 bf16 B={b}: " + "; ".join(parts))
 
 
 def _repeat_check(torch, run, ours, where: str) -> None:
@@ -829,6 +945,11 @@ def train_path_phase(torch, card: str, workdir: Path, extractor: str = "vit_b_32
         if launches[name] != DEPTH * 2 * sum(batches):
             raise AssertionError(f"{name}: {launches[name]} launches, expected "
                                  f"{DEPTH} x 2 x {sum(batches)} target batches")
+    sizes = [min(batch, len(t["target_labels"]) - i * batch)
+             for t in train_tasks for i in range(math.ceil(len(t["target_labels"]) / batch))]
+    by_size = {n: DEPTH * sizes.count(n) for n in sorted(set(sizes), reverse=True)}
+    print(f"  #4 and #6 launches by batch size: {by_size} (target batches), "
+          f"{num_lite}: {DEPTH * len(sizes)} (grad subsets)")
     for name in ("fused_qkv_attention", "fused_mlp_block"):
         if launches[name] != DEPTH * forwards[0]:
             raise AssertionError(f"{name}: {launches[name]} launches, expected "
@@ -1278,6 +1399,7 @@ def main(argv=None) -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {'ran' if kbuild.build_seconds is not None else 'skipped: built'}) "
           f"-> {kbuild.library_path()}")
+    print_registers(kbuild.library_path().parent / "nvcc.log", WGMMA_KERNELS)
 
     # phase 3: kernels vs plain versions
     rows = kernel_phase(torch, card)
@@ -1336,7 +1458,10 @@ def main(argv=None) -> int:
                         "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
                         "bound_ms": rows[name]["bound_ms"],
                         "bound_by": rows[name]["bound_by"],
-                        "library_ms": rows[name].get("library_ms")})
+                        "library_ms": rows[name].get("library_ms"),
+                        "gemm_ms": rows[name].get("gemm_ms"),
+                        "launches_by_path": {path: launches[name]
+                                             for path, launches in paths.items()}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

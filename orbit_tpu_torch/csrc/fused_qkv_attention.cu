@@ -11,40 +11,40 @@
 // rounded to T before the AV product, AV accumulates in f32.
 //
 // What bounds it on the H100: the projection GEMM, 2*S*D*3D FLOPs per batch
-// row (about 45 GFLOP per ViT-B/32 layer at B=256, S=50); attention itself
-// is about 2% of that. In f32 the kernel runs FMA loops on the CUDA cores
-// (true f32, as the f32 path must be), bound by FMA issue and shared-memory
-// bandwidth. In bf16 it runs WMMA tiles on the tensor cores; there it is
-// bound by fragment loads: W fragments come straight from L2 and are
-// re-read by the four warps that share a column tile, and one block per
-// (batch row, head) re-reads its 295 KB slice of W. Staging W tiles in
-// shared memory, and wgmma with TMA, are later work.
+// row (about 45 GFLOP per ViT-B/32 layer at B=256, S=50, 0.048 ms at the
+// bf16 peak); attention itself is about 2% of that. Writing qkv to device
+// memory and reading it back (118 MB) would cost more than half of that
+// bound, so q, k and v stay on chip, as in the TPU kernel.
 //
-// Design (f32): one thread block per (batch row, head). The block streams
-// x[b] (S x D) and the head's 3*hd columns of W over D in KT-wide tiles
-// through shared memory and accumulates q, k and v (S x 3*hd, f32 in
-// registers, 4 x 12 per thread, read from shared memory as float4s), so the
-// (B,S,3D) qkv tensor never reaches
-// device memory. q, k, v (rounded to T) then stay in shared memory for the
-// scores, the per-row softmax (one warp per row) and the AV product. The
-// bf16 design (below) keeps the same block and the same stages on the
-// tensor cores. The TPU's 8-row block-diagonal stacking (made for the
-// 128x128 MXU) is not carried over: each block attends over its own S
-// tokens only, and rows >= S of the padded 64-row tile are masked out of
-// every product.
+// bf16 (every supported ViT): the projection runs on wgmma.cuh's mainloop
+// (TMA-fed shared-memory stages, wgmma with f32 accumulators) over row
+// tiles that pack whole sequences, so a block reads each 64-wide slice of
+// x and of its head's W once, and only 22% of the rows are padding at
+// S = 50 (the WMMA kernel it replaces padded every sequence to 64 rows and
+// read W fragments from L2 once per warp); the attention runs on the
+// tensor cores (mma.sync) from the tile's q, k and v in shared memory.
+// Design at the kernel below.
+//
+// f32: one thread block per (batch row, head), FMA loops on the CUDA cores
+// (true f32, as the f32 path must be), bound by FMA issue and shared-memory
+// bandwidth. The block streams x[b] (S x D) and the head's 3*hd columns of
+// W over D in KT-wide tiles through shared memory and accumulates q, k and
+// v (S x 3*hd, f32 in registers, 4 x 12 per thread, read from shared memory
+// as float4s). q, k, v (rounded to T) then stay in shared memory for the
+// scores, the per-row softmax (one warp per row) and the AV product
+// (attention.cuh's attend_fma).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
-
 #include <cmath>
+#include <cstdint>
 #include <type_traits>
 
 #include "attention.cuh"
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-using orbit::from_float;
 using orbit::round_to;
 using orbit::to_float;
 using orbit::attn::kHeadDim;
@@ -153,112 +153,214 @@ fused_qkv_attention_kernel(const T* __restrict__ x, const T* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores (WMMA 16x16x16, f32 accumulate). Same math and
-// rounding points as the FMA kernel above; the projection, q k^T and p v
-// run as 16x16 tiles on the tensor cores. One block of 8 warps per (batch
-// row, head). The projection streams x[b] through shared memory in
-// kTcTileK-wide slices (rows >= S zero) and reads W fragments straight from
-// L2; warp w owns output row tile w/2 and six of the twelve column tiles of
-// [q | k | v]. q, k and v are rounded to bf16 in shared memory; the scores
-// go to f32 shared memory for the softmax, whose bf16 p has zeros in every
-// column >= S, so the padded rows of v (bias only) add nothing to p v.
+// bf16 on Hopper's tensor cores. One block of 288 threads per (row tile,
+// head): a row tile packs nseq = floor(128 / S) whole sequences densely
+// (2 x 50 = 100 of 128 rows at 224 px, 25 x 5 = 125 at 84 px), as the TPU
+// kernel stacks 8 batch rows for its MXU, and no sequence straddles two
+// tiles. The projection runs on wgmma.cuh's mainloop: the tile's 128 rows
+// of x against the head's 192 columns of W, three 64-column boxes at
+// h*64, D + h*64 and 2D + h*64, as one m64n192 product per consumer
+// warpgroup. Epilogue: + b (already bf16), rounded to bf16 into shared
+// memory (q, k, v of the tile; the pipeline's stages are dead by then and
+// the tiles reuse them). Then every warp of the block attends per
+// (sequence, 16 query rows) with mma.sync m16n8k16 tiles: the scores for
+// all 64 key slots in registers (f32), masked past S, scaled, softmax in
+// f32, p rounded to bf16 and fed straight back as the A operand of p v, and
+// the output rows < S written to out.
 // ---------------------------------------------------------------------------
-using orbit::attn::kTcLd;
-using orbit::attn::kTcTileBytes;
+constexpr int kWgCols = 3 * kHeadDim;                 // 192: [q | k | v] of one head
+constexpr int kWgStages = 5;
+using WgRing = orbit::wg::Ring<kWgCols, kWgStages>;
+constexpr int kQkvRows = orbit::wg::kBM + kMaxTokens;  // a sequence's 64 key slots stay inside
+constexpr int kSLd = kHeadDim + 8;                    // bf16 row stride: 144 bytes
+constexpr size_t kQkvBytes = 3ull * kQkvRows * kSLd * sizeof(__nv_bfloat16);
+constexpr size_t kWgSmemBytes = WgRing::kSmemBytes;
+static_assert(kQkvBytes <= WgRing::kStages * WgRing::kStageBytes,
+              "q, k, v must fit in the pipeline's stages");
 
-constexpr int kTcTileK = 64;
-constexpr size_t kTcSmemBytes = 5 * kTcTileBytes               // x slice, q, k, v, p
-                                + orbit::attn::kTcScoreBytes     // scores
-                                + orbit::attn::kTcWarpTileBytes;  // per-warp f32 tiles
+__device__ __forceinline__ void ldsm_x4(const void* p, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(orbit::wg::smem_addr(p)));
+}
 
-__global__ void __launch_bounds__(kThreads)
-fused_qkv_attention_tc_kernel(const __nv_bfloat16* __restrict__ x,
-                              const __nv_bfloat16* __restrict__ w,
-                              const __nv_bfloat16* __restrict__ bias,
-                              __nv_bfloat16* __restrict__ out, int S, int D, int H) {
-  using namespace nvcuda;
-  using bf16 = __nv_bfloat16;
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  bf16* xs = reinterpret_cast<bf16*>(tc_smem);
-  bf16* qs = reinterpret_cast<bf16*>(tc_smem + kTcTileBytes);
-  bf16* ks = reinterpret_cast<bf16*>(tc_smem + 2 * kTcTileBytes);
-  bf16* vs = reinterpret_cast<bf16*>(tc_smem + 3 * kTcTileBytes);
-  bf16* ps = reinterpret_cast<bf16*>(tc_smem + 4 * kTcTileBytes);
-  float* sc = reinterpret_cast<float*>(tc_smem + 5 * kTcTileBytes);
-  float* wtiles = sc + kMaxTokens * orbit::attn::kTcScoreLd;
+__device__ __forceinline__ void ldsm_x4_t(const void* p, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(orbit::wg::smem_addr(p)));
+}
 
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int d3 = 3 * D;
-  const bf16* xb = x + static_cast<size_t>(b) * S * D;
-  float* tile = wtiles + warp * 256;
+// c (16 x 8, f32) += a (16 x 16, bf16) . b (16 x 8, bf16)
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-  // ---- projection: row tile warp/2, column tiles (warp%2)*6 .. +6 of [q|k|v] ----
-  const int pr = warp / 2;
-  const int pc0 = (warp % 2) * 6;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[6];
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// One warp: query rows q0..q0+15 of the sequence whose S rows start at
+// row r0 of the q, k, v tiles; out rows < S go to ob (out[first row of the
+// sequence, h*hd]). Rows and key slots past S read finite values (the next
+// sequence, or the zeroed tail) and are masked or not stored.
+__device__ __forceinline__ void attend_rows(const __nv_bfloat16* qs, const __nv_bfloat16* ks,
+                                            const __nv_bfloat16* vs, int r0, int q0, int S,
+                                            __nv_bfloat16* __restrict__ ob, int D) {
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, c2 = 2 * (lane % 4);
+  // ---- scores = q k^T: 16 rows x 64 key slots (8 tiles of 8), f32 ----
+  float sc[8][4];
 #pragma unroll
-  for (int j = 0; j < 6; ++j) wmma::fill_fragment(acc[j], 0.f);
-  for (int k0 = 0; k0 < D; k0 += kTcTileK) {
-    for (int e = tid; e < kMaxTokens * kTcTileK; e += kThreads) {
-      const int r = e / kTcTileK, c = e % kTcTileK;
-      xs[r * kTcLd + c] = r < S ? xb[static_cast<size_t>(r) * D + k0 + c]
-                                : from_float<bf16>(0.f);
+  for (int t = 0; t < 8; ++t) sc[t][0] = sc[t][1] = sc[t][2] = sc[t][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kHeadDim; kk += 16) {
+    uint32_t a[4];
+    ldsm_x4(qs + (r0 + q0 + (lane % 8) + 8 * ((lane / 8) % 2)) * kSLd + kk + 8 * (lane / 16), a);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {  // key slots 16 np .. 16 np + 15
+      uint32_t b[4];
+      ldsm_x4(ks + (r0 + 16 * np + (lane % 8) + 8 * (lane / 16)) * kSLd + kk +
+                  8 * ((lane / 8) % 2),
+              b);
+      mma_16816(sc[2 * np], a, b[0], b[1]);
+      mma_16816(sc[2 * np + 1], a, b[2], b[3]);
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTcTileK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, xs + pr * 16 * kTcLd + kk, kTcLd);
-#pragma unroll
-      for (int j = 0; j < 6; ++j) {
-        const int lc = (pc0 + j) * 16;  // local column in [q | k | v] of this head
-        const int part = lc / kHeadDim, c = lc % kHeadDim;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bf;
-        wmma::load_matrix_sync(
-            bf, w + static_cast<size_t>(k0 + kk) * d3 + part * D + h * kHeadDim + c, d3);
-        wmma::mma_sync(acc[j], a, bf, acc[j]);
-      }
-    }
-    __syncthreads();  // xs is refilled by the next slice
   }
-  // qkv = cast_bf16(f32 GEMM + b), through the warp's f32 tile
+  // ---- softmax (f32) over the S real keys, scaled after the dot ----
+  const float scale = 1.0f / sqrtf(static_cast<float>(kHeadDim));
+  float m[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int j = 0; j < 6; ++j) {
-    const int lc = (pc0 + j) * 16;
-    const int part = lc / kHeadDim, c = lc % kHeadDim;
-    bf16* dst = part == 0 ? qs : (part == 1 ? ks : vs);
-    wmma::store_matrix_sync(tile, acc[j], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int r = e / 16, cc = e % 16;
-      const float bj = to_float(bias[part * D + h * kHeadDim + c + cc]);
-      dst[(pr * 16 + r) * kTcLd + c + cc] = from_float<bf16>(tile[e] + bj);
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 8 * t + c2 + (e % 2);
+      sc[t][e] = j < S ? sc[t][e] * scale : -INFINITY;
+      m[e / 2] = fmaxf(m[e / 2], sc[t][e]);
     }
-    __syncwarp();
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
+    m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
+  }
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[t][e] = expf(sc[t][e] - m[e / 2]);  // 0 past S
+      sum[e / 2] += sc[t][e];
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+  }
+  // ---- out = cast_bf16(f32(cast_bf16(p) v)): p is the A operand as it lies ----
+  float o[8][4];
+#pragma unroll
+  for (int t = 0; t < 8; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
+#pragma unroll
+  for (int ks16 = 0; ks16 < 4; ++ks16) {  // key slots 16 ks16 .. + 15
+    const uint32_t a[4] = {
+        pack_bf16(sc[2 * ks16][0] / sum[0], sc[2 * ks16][1] / sum[0]),
+        pack_bf16(sc[2 * ks16][2] / sum[1], sc[2 * ks16][3] / sum[1]),
+        pack_bf16(sc[2 * ks16 + 1][0] / sum[0], sc[2 * ks16 + 1][1] / sum[0]),
+        pack_bf16(sc[2 * ks16 + 1][2] / sum[1], sc[2 * ks16 + 1][3] / sum[1])};
+#pragma unroll
+    for (int dp = 0; dp < 4; ++dp) {  // head columns 16 dp .. 16 dp + 15
+      uint32_t b[4];
+      ldsm_x4_t(vs + (r0 + 16 * ks16 + (lane % 8) + 8 * ((lane / 8) % 2)) * kSLd + 16 * dp +
+                    8 * (lane / 16),
+                b);
+      mma_16816(o[2 * dp], a, b[0], b[1]);
+      mma_16816(o[2 * dp + 1], a, b[2], b[3]);
+    }
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int i = q0 + g + 8 * half;
+    if (i >= S) continue;
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      *reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(i) * D + 8 * t + c2) =
+          pack_bf16(o[t][2 * half], o[t][2 * half + 1]);
+  }
+}
+
+__global__ void __launch_bounds__(orbit::wg::kThreads, 1)
+fused_qkv_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                                 const __grid_constant__ CUtensorMap map_w,
+                                 const __nv_bfloat16* __restrict__ bias,
+                                 __nv_bfloat16* __restrict__ out, int B, int S, int D,
+                                 int nseq) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ unsigned char wg_smem[];
+  unsigned char* base = orbit::wg::ring_base(wg_smem);
+  const int h = blockIdx.x;
+  const int seq0 = blockIdx.y * nseq;            // first sequence of the tile
+  const int nseq_here = min(nseq, B - seq0);
+  const int row0 = seq0 * S;                     // its first row of x
+  const int cols[3] = {h * kHeadDim, D + h * kHeadDim, 2 * D + h * kHeadDim};
+  float acc[kWgCols / 2];
+  orbit::wg::mainloop<kWgCols, kWgStages>(&map_x, &map_w, row0, cols, D / orbit::wg::kBK,
+                                          base, acc);
+  __syncthreads();  // every stage consumed: q, k, v reuse them
+
+  bf16* qs = reinterpret_cast<bf16*>(base);
+  bf16* ks = qs + kQkvRows * kSLd;
+  bf16* vs = ks + kQkvRows * kSLd;
+  if (threadIdx.x < 256) {
+    // qkv = cast_bf16(f32 GEMM + b): the TPU kernel's first rounding point
+    orbit::wg::for_each_acc<kWgCols>(acc, [&](int r, int c, float v0, float v1) {
+      const int part = c / kHeadDim, cc = c % kHeadDim;
+      const bf16* bp = bias + part * D + h * kHeadDim + cc;
+      bf16* dst = (part == 0 ? qs : (part == 1 ? ks : vs)) + r * kSLd + cc;
+      *reinterpret_cast<uint32_t*>(dst) =
+          pack_bf16(v0 + to_float(bp[0]), v1 + to_float(bp[1]));
+    });
+  }
+  // the key slots past the tile's last row hold zeros
+  for (int e = threadIdx.x; e < 3 * kMaxTokens * kSLd / 2; e += orbit::wg::kThreads) {
+    const int part = e / (kMaxTokens * kSLd / 2), i = e % (kMaxTokens * kSLd / 2);
+    reinterpret_cast<uint32_t*>(qs + (part * kQkvRows + orbit::wg::kBM) * kSLd)[i] = 0u;
   }
   __syncthreads();
 
-  orbit::attn::attend_tc(qs, ks, vs, ps, sc, wtiles,
-                         out + static_cast<size_t>(b) * S * D + h * kHeadDim, S, D);
+  const int qtiles = (S + 15) / 16;
+  for (int u = threadIdx.x / 32; u < nseq_here * qtiles; u += orbit::wg::kThreads / 32) {
+    const int q = u / qtiles, q0 = (u % qtiles) * 16;
+    attend_rows(qs, ks, vs, q * S, q0, S,
+                out + static_cast<size_t>(row0 + q * S) * D + h * kHeadDim, D);
+  }
 }
 
+// nseq: whole sequences per row tile of the bf16 route (the caller's plan,
+// floor(128 / S) in orbit_tpu_torch/ops/tiny_attention.py::sequence_tiles)
 template <typename T>
-int launch(const void* x, const void* w, const void* bias, void* out, int B, int S,
-           int D, int H, void* stream) {
-  if (B < 1 || S < 1 || S > kMaxTokens || H < 1 || D != H * kHeadDim || D % kTcTileK)
+int launch(const void* x, const void* w, const void* bias, void* out, int B, int S, int D,
+           int H, int nseq, void* stream) {
+  if (B < 1 || S < 1 || S > kMaxTokens || H < 1 || D != H * kHeadDim)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    CUtensorMap map_x, map_w;
+    if (!orbit::wg::make_tmap_2d(&map_x, x, B * S, D, D, orbit::wg::kBM) ||
+        !orbit::wg::make_tmap_2d(&map_w, w, D, 3 * D, 3 * D, orbit::wg::kBK))
+      return static_cast<int>(cudaErrorInvalidValue);
     static bool configured = false;  // one flag per instantiation
-    if (const int e = orbit::set_smem(fused_qkv_attention_tc_kernel, kTcSmemBytes, &configured))
+    if (const int e =
+            orbit::set_smem(fused_qkv_attention_wgmma_kernel, kWgSmemBytes, &configured))
       return e;
-    fused_qkv_attention_tc_kernel<<<B * H, kThreads, kTcSmemBytes, s>>>(
-        static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(bias),
-        static_cast<T*>(out), S, D, H);
+    if (nseq < 1 || nseq * S > orbit::wg::kBM) return static_cast<int>(cudaErrorInvalidValue);
+    fused_qkv_attention_wgmma_kernel<<<dim3(H, (B + nseq - 1) / nseq), orbit::wg::kThreads,
+                                       kWgSmemBytes, s>>>(
+        map_x, map_w, static_cast<const T*>(bias), static_cast<T*>(out), B, S, D, nseq);
   } else {
     static bool configured = false;
     if (const int e = orbit::set_smem(fused_qkv_attention_kernel<T>, kSmemBytes, &configured))
@@ -275,11 +377,11 @@ int launch(const void* x, const void* w, const void* bias, void* out, int B, int
 extern "C" int orbit_fused_qkv_attention_f32(const void* x, const void* w, const void* bias,
                                              void* out, int B, int S, int D, int H,
                                              void* stream) {
-  return launch<float>(x, w, bias, out, B, S, D, H, stream);
+  return launch<float>(x, w, bias, out, B, S, D, H, 0, stream);
 }
 
 extern "C" int orbit_fused_qkv_attention_bf16(const void* x, const void* w, const void* bias,
-                                              void* out, int B, int S, int D, int H,
+                                              void* out, int B, int S, int D, int H, int nseq,
                                               void* stream) {
-  return launch<__nv_bfloat16>(x, w, bias, out, B, S, D, H, stream);
+  return launch<__nv_bfloat16>(x, w, bias, out, B, S, D, H, nseq, stream);
 }

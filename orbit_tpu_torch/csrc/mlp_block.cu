@@ -5,41 +5,46 @@
 // b2 in f32 and W1 (D, Hd), W2 (Hd, D) in T:
 //   xf   = f32(x); mean, var two-pass in f32; rstd = 1/sqrt(var + eps)
 //   xn   = cast_T((xf - mean) * rstd * gamma + beta)
-//   h    = cast_T(gelu_erf(f32(xn @ W1) + b1))     (never stored to memory)
+//   h    = cast_T(gelu_erf(f32(xn @ W1) + b1))
 //   y    = cast_T(f32(h @ W2) + b2 + xf)
 // The rounding points are the TPU kernel's. GELU is the exact erf form; the
 // TPU kernel approximates erf with a polynomial (|err| <= 1.5e-7), here
 // CUDA's erff is used.
 //
 // What bounds it on the H100: the two GEMMs, 4*rows*D*Hd FLOPs (about
-// 121 GFLOP per ViT-B/32 layer at B=256). In f32 the kernel runs FMA loops
-// on the CUDA cores (true f32; the numeric policy keeps TF32 off), bound by
-// FMA issue and the shared-memory reads that feed it; at D 768 a thread
-// holds 4 x 24 accumulators (252 registers), so one block fills an SM and
-// 400 blocks make 4 waves on 132 SMs, the last nearly empty. In bf16 (D a
-// multiple of 128) the GEMMs run as WMMA tiles on the tensor cores; there
-// the bound is the weight traffic (each 32-row block re-reads W1 and W2,
-// 9.4 MB, from L2 as fragments) and the serial 48-step fc1 chain of each
-// warp. wgmma with TMA and a weight tile shared by a cluster are later work.
+// 121 GFLOP per ViT-B/32 layer at B=256, 0.122 ms at the bf16 peak). The
+// TPU kernel keeps h in VMEM because its weights stay resident there; on
+// the H100 a block's shared memory cannot hold them, and keeping h on chip
+// makes every row tile re-stream all of W1 and W2 (9.4 MB) from L2.
 //
-// Design (f32, and bf16 at other D): blocks of 8 warps; each warp owns 4
-// rows from the LayerNorm to the store. The warp normalises its rows into
-// shared memory, then walks the hidden dimension in chunks of kChunk
-// columns: the chunk's activations h_c = gelu(xn @ W1[:, c] + b1[c])
+// bf16, D a multiple of 128 (the ViTs): three launches, described at their
+// kernels below. The two products run on wgmma.cuh's mainloop (TMA-fed
+// shared-memory stages, wgmma with f32 accumulators) in 128 x 128 tiles
+// that read each weight tile once per row tile; h goes to
+// device memory once as bf16 (78.6 MB at B = 256, about 0.047 ms of the
+// 3.35 TB/s each way), which is cheaper than re-streaming the weights.
+//
+// f32, and bf16 at other widths: the FMA kernel on the CUDA cores (true
+// f32; the numeric policy keeps TF32 off), bound by FMA issue and the
+// shared-memory reads that feed it; at D 768 a thread holds 4 x 24
+// accumulators (252 registers), so one block fills an SM and 400 blocks
+// make 4 waves on 132 SMs, the last nearly empty. Blocks of 8 warps; each
+// warp owns 4 rows from the LayerNorm to the store. The warp normalises its
+// rows into shared memory, then walks the hidden dimension in chunks of
+// kChunk columns: the chunk's activations h_c = gelu(xn @ W1[:, c] + b1[c])
 // (2 columns per lane) go to shared memory only, and y_acc += h_c @ W2[c, :]
 // accumulates in registers (4 rows x D/32 columns per lane). W1 and W2
 // stream through double-buffered shared-memory stages (cp.async) that the
-// block's 8 warps share. The (rows, Hd) hidden tensor never reaches device
-// memory. D is a template parameter so the accumulator tile lives in
-// registers. The bf16 tensor-core design is described at its kernel below.
+// block's 8 warps share, and h never reaches device memory. D is a
+// template parameter so the accumulator tile lives in registers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cuda_pipeline.h>
-#include <mma.h>
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -245,187 +250,215 @@ fused_mlp_block_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores (WMMA 16x16x16, f32 accumulate), for D a
-// multiple of 128. Same math and rounding points as the FMA kernel above;
-// only the two GEMMs move to the tensor cores. One block of 8 warps per
-// kTcRows rows: the block normalises its rows into shared memory (bf16), and
-// per hidden chunk of 64 columns each warp computes one 16x16 tile of
-// xn @ W1[:, c] (W1 fragments straight from L2), the block applies bias +
-// GELU into a bf16 tile, and each warp adds that tile times its D/8-column
-// stripe of W2[c, :] into its accumulator fragments (2 x D/128 of them).
+// bf16 on Hopper's tensor cores, for D and hidden multiples of 128: three
+// launches behind one op call, the two products on
+// the wgmma mainloop of wgmma.cuh.
+//   1. LayerNorm: one warp per row, f32 two-pass statistics, xn rounded to
+//      bf16 into a (rows, D) workspace;
+//   2. fc1: h = cast_bf16(gelu_erf(f32(xn @ W1) + b1)) into a (rows, hidden)
+//      workspace;
+//   3. fc2: y = cast_bf16(f32(h @ W2) + b2 + f32(x)).
+// Both products run 128 x 128 tiles, two blocks an SM on a 3-stage ring
+// each, so that one block's epilogue (fc1's: an erf per element) overlaps
+// the other block's products.
+// The rounding points are those of the other routes: h is rounded to bf16
+// where the TPU kernel rounds hg. Writing h once and reading it back costs
+// 2 x 78.6 MB at ViT-B/32, B = 256 (about 0.047 ms at 3.35 TB/s); keeping
+// it on chip instead would make every row tile re-stream all of W1 and W2.
 // ---------------------------------------------------------------------------
-constexpr int kTcRows = 32;
-constexpr int kTcWarps = 8;
-constexpr int kTcThreads = 32 * kTcWarps;
+using orbit::wg::kBM;
+using orbit::wg::kBK;
+constexpr int kLnWarps = 8;
+constexpr int kTileN = 128;  // tile columns of fc1 and fc2
+constexpr int kStages = 3;   // ring stages a block: two blocks an SM
+using MlpRing = orbit::wg::Ring<kTileN, kStages>;
 
 template <int D>
-struct TcLayout {
-  static constexpr int kXLd = D + 8;            // bf16 elements; rows stay 32-byte aligned
-  static constexpr int kHLd = kChunk + 8;       // bf16
-  static constexpr int kSLd = kChunk + 4;       // f32
-  static constexpr size_t kXBytes = sizeof(__nv_bfloat16) * kTcRows * kXLd;
-  static constexpr size_t kHBytes = sizeof(__nv_bfloat16) * kTcRows * kHLd;
-  static constexpr size_t kStageBytes = sizeof(float) * kTcRows * kSLd;
-  static constexpr size_t kWarpTileBytes = sizeof(float) * kTcWarps * 256;
-  static constexpr size_t kBytes = kXBytes + kHBytes + kStageBytes + kWarpTileBytes;
-};
-
-template <int D>
-__global__ void __launch_bounds__(kTcThreads)
-fused_mlp_block_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ ln_g,
-                          const float* __restrict__ ln_b, const __nv_bfloat16* __restrict__ w1,
-                          const float* __restrict__ b1, const __nv_bfloat16* __restrict__ w2,
-                          const float* __restrict__ b2, __nv_bfloat16* __restrict__ out,
-                          int rows, int hidden, float eps) {
-  using namespace nvcuda;
-  using L = TcLayout<D>;
-  constexpr int kStripe = D / 16 / kTcWarps;  // fc2 column tiles per warp
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* xn = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::kXBytes);
-  float* hstage = reinterpret_cast<float*>(smem_raw + L::kXBytes + L::kHBytes);
-  float* wtile = reinterpret_cast<float*>(smem_raw + L::kXBytes + L::kHBytes + L::kStageBytes);
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int row0 = blockIdx.x * kTcRows;
-
-  // ---- LayerNorm (f32, two-pass), one warp per row, xn rounded to bf16 ----
-  for (int r = warp; r < kTcRows; r += kTcWarps) {
-    const int gr = row0 + r;
-    __nv_bfloat16* xr_n = xn + r * L::kXLd;
-    if (gr < rows) {
-      const __nv_bfloat16* xr = x + static_cast<size_t>(gr) * D;
-      float s = 0.f;
-      for (int k = lane; k < D; k += 32) s += to_float(xr[k]);
-      const float mean = orbit::warp_sum(s) / D;
-      float v = 0.f;
-      for (int k = lane; k < D; k += 32) {
-        const float c = to_float(xr[k]) - mean;
-        v += c * c;
-      }
-      const float rstd = 1.0f / sqrtf(orbit::warp_sum(v) / D + eps);
-      for (int k = lane; k < D; k += 32) {
-        const float xhat = (to_float(xr[k]) - mean) * rstd;
-        xr_n[k] = from_float<__nv_bfloat16>(xhat * ln_g[k] + ln_b[k]);
-      }
-    } else {
-      for (int k = lane; k < D; k += 32) xr_n[k] = from_float<__nv_bfloat16>(0.f);
-    }
-  }
-  __syncthreads();
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> yacc[2][kStripe];
+__global__ void __launch_bounds__(32 * kLnWarps)
+fused_mlp_block_layernorm_kernel(const __nv_bfloat16* __restrict__ x,
+                                 const float* __restrict__ ln_g,
+                                 const float* __restrict__ ln_b,
+                                 __nv_bfloat16* __restrict__ xn, int rows, float eps) {
+  constexpr int kVecs = D / 8;                  // 16-byte vectors of a row
+  constexpr int kPerLane = (kVecs + 31) / 32;
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kLnWarps + threadIdx.x / 32;
+  if (row >= rows) return;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + static_cast<size_t>(row) * D);
+  float v[kPerLane][8];
+  float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < kPerLane; ++i) {
+    const int c = lane + 32 * i;
+    if (c < kVecs) {
+      const uint4 raw = xr[c];
+      const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-    for (int j = 0; j < kStripe; ++j) wmma::fill_fragment(yacc[i][j], 0.f);
-
-  const int tr = warp / 4, tc = warp % 4;  // this warp's fc1 tile of the chunk
-  for (int c0 = 0; c0 < hidden; c0 += kChunk) {
-    {  // ---- fc1: hpre tile (tr, tc) = xn[tr rows] @ W1[:, c0 + tc*16 ...] ----
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> hacc;
-      wmma::fill_fragment(hacc, 0.f);
-      const __nv_bfloat16* a_ptr = xn + tr * 16 * L::kXLd;
-      const __nv_bfloat16* b_ptr = w1 + c0 + tc * 16;
-#pragma unroll 4
-      for (int k = 0; k < D; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, a_ptr + k, L::kXLd);
-        wmma::load_matrix_sync(b, b_ptr + static_cast<size_t>(k) * hidden, hidden);
-        wmma::mma_sync(hacc, a, b, hacc);
-      }
-      wmma::store_matrix_sync(hstage + tr * 16 * L::kSLd + tc * 16, hacc, L::kSLd,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-    // ---- + b1, exact-erf GELU in f32, rounded to bf16 ----
-    for (int e = tid; e < kTcRows * kChunk; e += kTcThreads) {
-      const int r = e / kChunk, c = e % kChunk;
-      const float hp = hstage[r * L::kSLd + c] + b1[c0 + c];
-      const float g = 0.5f * hp * (1.0f + erff(hp * 0.70710678118654752f));
-      hs[r * L::kHLd + c] = from_float<__nv_bfloat16>(g);
-    }
-    __syncthreads();
-    // ---- fc2: y stripe += h_c @ W2[c0:c0+kChunk, stripe] ----
-#pragma unroll
-    for (int k = 0; k < kChunk; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a0, a1;
-      wmma::load_matrix_sync(a0, hs + k, L::kHLd);
-      wmma::load_matrix_sync(a1, hs + 16 * L::kHLd + k, L::kHLd);
-      const __nv_bfloat16* b_row = w2 + static_cast<size_t>(c0 + k) * D + warp * kStripe * 16;
-#pragma unroll
-      for (int j = 0; j < kStripe; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, b_row + j * 16, D);
-        wmma::mma_sync(yacc[0][j], a0, b, yacc[0][j]);
-        wmma::mma_sync(yacc[1][j], a1, b, yacc[1][j]);
+      for (int q = 0; q < 4; ++q) {
+        const float2 f = __bfloat1622float2(p[q]);
+        v[i][2 * q] = f.x;
+        v[i][2 * q + 1] = f.y;
+        s += f.x + f.y;
       }
     }
   }
-
-  // ---- y = cast_bf16(f32 GEMM + b2 + xf), through a per-warp f32 tile ----
-  float* tile = wtile + warp * 256;
+  const float mean = orbit::warp_sum(s) / D;
+  float var = 0.f;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < kPerLane; ++i)
+    if (lane + 32 * i < kVecs)
 #pragma unroll
-    for (int j = 0; j < kStripe; ++j) {
-      wmma::store_matrix_sync(tile, yacc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int gr = row0 + i * 16 + e / 16;
-        const int col = (warp * kStripe + j) * 16 + e % 16;
-        if (gr < rows) {
-          const size_t o = static_cast<size_t>(gr) * D + col;
-          out[o] = from_float<__nv_bfloat16>(tile[e] + b2[col] + to_float(x[o]));
-        }
+      for (int e = 0; e < 8; ++e) {
+        const float c = v[i][e] - mean;
+        var += c * c;
       }
-      __syncwarp();
+  const float rstd = 1.0f / sqrtf(orbit::warp_sum(var) / D + eps);
+  uint4* out = reinterpret_cast<uint4*>(xn + static_cast<size_t>(row) * D);
+#pragma unroll
+  for (int i = 0; i < kPerLane; ++i) {
+    const int c = lane + 32 * i;
+    if (c < kVecs) {
+      uint4 raw;
+      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int k = 8 * c + 2 * q;
+        p[q] = __floats2bfloat162_rn((v[i][2 * q] - mean) * rstd * ln_g[k] + ln_b[k],
+                                     (v[i][2 * q + 1] - mean) * rstd * ln_g[k + 1] +
+                                         ln_b[k + 1]);
+      }
+      out[c] = raw;
     }
+  }
 }
 
+// fc1's epilogue: h = cast_bf16(gelu_erf(f32 sum + b1))
+struct GeluStore {
+  const float* b1;
+  __nv_bfloat16* h;
+  int ld;
+  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) const {
+    const float p0 = v0 + b1[c], p1 = v1 + b1[c + 1];
+    const float g0 = 0.5f * p0 * (1.0f + erff(p0 * 0.70710678118654752f));
+    const float g1 = 0.5f * p1 * (1.0f + erff(p1 * 0.70710678118654752f));
+    *reinterpret_cast<__nv_bfloat162*>(h + static_cast<size_t>(r) * ld + c) =
+        __floats2bfloat162_rn(g0, g1);
+  }
+};
+
+// fc2's epilogue: y = cast_bf16(f32 sum + b2 + f32(x))
+struct ResidualStore {
+  const float* b2;
+  const __nv_bfloat16* x;
+  __nv_bfloat16* out;
+  int ld;
+  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) const {
+    const size_t o = static_cast<size_t>(r) * ld + c;
+    const float2 xf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + o));
+    *reinterpret_cast<__nv_bfloat162*>(out + o) =
+        __floats2bfloat162_rn(v0 + b2[c] + xf.x, v1 + b2[c + 1] + xf.y);
+  }
+};
+
+// One 128 x 128 tile of fc1 or fc2: the mainloop over K = 64 nk, then the
+// epilogue on every element of a row below rows.
+template <class Epi>
+__global__ void __launch_bounds__(orbit::wg::kThreads, 2)
+fused_mlp_block_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                            const __grid_constant__ CUtensorMap map_b, Epi epi, int rows,
+                            int nk) {
+  extern __shared__ unsigned char wg_smem[];
+  unsigned char* base = orbit::wg::ring_base(wg_smem);
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kTileN;
+  const int cols[2] = {n0, n0 + 64};
+  float acc[kTileN / 2];
+  orbit::wg::mainloop<kTileN, kStages>(&map_a, &map_b, m0, cols, nk, base, acc);
+  if (threadIdx.x >= 256) return;  // the producer warp
+  orbit::wg::for_each_acc<kTileN>(acc, [&](int r, int c, float v0, float v1) {
+    if (m0 + r < rows) epi(m0 + r, n0 + c, v0, v1);
+  });
+}
+
+template <int D>
+int launch_wgmma(const void* x, const void* ln_g, const void* ln_b, const void* w1,
+                 const void* b1, const void* w2, const void* b2, void* out, void* xn,
+                 void* h, int rows, int hidden, float eps, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  CUtensorMap maps[4];
+  if (!orbit::wg::make_tmap_2d(&maps[0], xn, rows, D, D, kBM) ||
+      !orbit::wg::make_tmap_2d(&maps[1], w1, D, hidden, hidden, kBK) ||
+      !orbit::wg::make_tmap_2d(&maps[2], h, rows, hidden, hidden, kBM) ||
+      !orbit::wg::make_tmap_2d(&maps[3], w2, hidden, D, D, kBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t bytes = MlpRing::kSmemBytes;
+  static bool configured1 = false, configured2 = false;
+  if (const int e = orbit::set_smem(fused_mlp_block_gemm_kernel<GeluStore>, bytes, &configured1))
+    return e;
+  if (const int e =
+          orbit::set_smem(fused_mlp_block_gemm_kernel<ResidualStore>, bytes, &configured2))
+    return e;
+  fused_mlp_block_layernorm_kernel<D><<<(rows + kLnWarps - 1) / kLnWarps, 32 * kLnWarps, 0,
+                                        stream>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(ln_g),
+      static_cast<const float*>(ln_b), static_cast<bf16*>(xn), rows, eps);
+  if (const cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  const int row_tiles = (rows + kBM - 1) / kBM;
+  fused_mlp_block_gemm_kernel<<<dim3(hidden / kTileN, row_tiles), orbit::wg::kThreads, bytes,
+                                stream>>>(
+      maps[0], maps[1], GeluStore{static_cast<const float*>(b1), static_cast<bf16*>(h), hidden},
+      rows, D / kBK);
+  if (const cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  fused_mlp_block_gemm_kernel<<<dim3(D / kTileN, row_tiles), orbit::wg::kThreads, bytes,
+                                stream>>>(
+      maps[2], maps[3],
+      ResidualStore{static_cast<const float*>(b2), static_cast<const bf16*>(x),
+                    static_cast<bf16*>(out), D},
+      rows, hidden / kBK);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The routes: bf16 with D and hidden multiples of 128
+// takes the wgmma route (xn and h are its workspaces); every other shape
+// and f32 take the FMA kernel.
 template <typename T, int D>
 int launch_d(const void* x, const void* ln_g, const void* ln_b, const void* w1,
-             const void* b1, const void* w2, const void* b2, void* out, int rows,
-             int hidden, float eps, cudaStream_t stream) {
+             const void* b1, const void* w2, const void* b2, void* out, void* xn, void* h,
+             int rows, int hidden, float eps, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value && D % 128 == 0) {
-    constexpr size_t bytes = TcLayout<D>::kBytes;
-    static bool configured = false;  // one flag per instantiation
-    if (const int e = orbit::set_smem(fused_mlp_block_tc_kernel<D>, bytes, &configured)) return e;
-    const int blocks = (rows + kTcRows - 1) / kTcRows;
-    fused_mlp_block_tc_kernel<D><<<blocks, kTcThreads, bytes, stream>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(ln_g),
-        static_cast<const float*>(ln_b), static_cast<const __nv_bfloat16*>(w1),
-        static_cast<const float*>(b1), static_cast<const __nv_bfloat16*>(w2),
-        static_cast<const float*>(b2), static_cast<__nv_bfloat16*>(out), rows, hidden, eps);
-  } else {
-    constexpr size_t bytes = FmaLayout<T, D>::kBytes;
-    static bool configured = false;
-    if (const int e = orbit::set_smem(fused_mlp_block_kernel<T, D>, bytes, &configured)) return e;
-    const int blocks = (rows + kRows - 1) / kRows;
-    fused_mlp_block_kernel<T, D><<<blocks, kThreads, bytes, stream>>>(
-        static_cast<const T*>(x), static_cast<const float*>(ln_g),
-        static_cast<const float*>(ln_b), static_cast<const T*>(w1),
-        static_cast<const float*>(b1), static_cast<const T*>(w2),
-        static_cast<const float*>(b2), static_cast<T*>(out), rows, hidden, eps);
+    if (hidden % kTileN == 0) {
+      if (!xn || !h) return static_cast<int>(cudaErrorInvalidValue);
+      return launch_wgmma<D>(x, ln_g, ln_b, w1, b1, w2, b2, out, xn, h, rows, hidden, eps,
+                             stream);
+    }
   }
+  constexpr size_t bytes = FmaLayout<T, D>::kBytes;
+  static bool configured = false;  // one flag per instantiation
+  if (const int e = orbit::set_smem(fused_mlp_block_kernel<T, D>, bytes, &configured)) return e;
+  const int blocks = (rows + kRows - 1) / kRows;
+  fused_mlp_block_kernel<T, D><<<blocks, kThreads, bytes, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(ln_g),
+      static_cast<const float*>(ln_b), static_cast<const T*>(w1),
+      static_cast<const float*>(b1), static_cast<const T*>(w2),
+      static_cast<const float*>(b2), static_cast<T*>(out), rows, hidden, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* x, const void* ln_g, const void* ln_b, const void* w1, const void* b1,
-           const void* w2, const void* b2, void* out, int rows, int D, int hidden,
-           float eps, void* stream) {
+           const void* w2, const void* b2, void* out, void* xn, void* h, int rows, int D,
+           int hidden, float eps, void* stream) {
   if (rows < 1 || hidden < kChunk || hidden % kChunk)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {  // the widths of the supported ViTs and of the tests
-    case 64: return launch_d<T, 64>(x, ln_g, ln_b, w1, b1, w2, b2, out, rows, hidden, eps, s);
-    case 128: return launch_d<T, 128>(x, ln_g, ln_b, w1, b1, w2, b2, out, rows, hidden, eps, s);
-    case 384: return launch_d<T, 384>(x, ln_g, ln_b, w1, b1, w2, b2, out, rows, hidden, eps, s);
-    case 768: return launch_d<T, 768>(x, ln_g, ln_b, w1, b1, w2, b2, out, rows, hidden, eps, s);
+#define ORBIT_MLP_CASE(W)                                                                 \
+  case W:                                                                                 \
+    return launch_d<T, W>(x, ln_g, ln_b, w1, b1, w2, b2, out, xn, h, rows, hidden, eps, s);
+    ORBIT_MLP_CASE(64)
+    ORBIT_MLP_CASE(128)
+    ORBIT_MLP_CASE(384)
+    ORBIT_MLP_CASE(768)
+#undef ORBIT_MLP_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -436,13 +469,18 @@ extern "C" int orbit_fused_mlp_block_f32(const void* x, const void* ln_g, const 
                                          const void* w1, const void* b1, const void* w2,
                                          const void* b2, void* out, int rows, int D,
                                          int hidden, float eps, void* stream) {
-  return launch<float>(x, ln_g, ln_b, w1, b1, w2, b2, out, rows, D, hidden, eps, stream);
+  return launch<float>(x, ln_g, ln_b, w1, b1, w2, b2, out, nullptr, nullptr, rows, D, hidden,
+                       eps, stream);
 }
 
+// xn (rows, D) and h (rows, hidden) are the wgmma route's bf16 workspaces
+// (may be null where the FMA kernel takes the shape: D not a multiple of
+// 128, or hidden not a multiple of 128)
 extern "C" int orbit_fused_mlp_block_bf16(const void* x, const void* ln_g, const void* ln_b,
                                           const void* w1, const void* b1, const void* w2,
-                                          const void* b2, void* out, int rows, int D,
-                                          int hidden, float eps, void* stream) {
-  return launch<__nv_bfloat16>(x, ln_g, ln_b, w1, b1, w2, b2, out, rows, D, hidden, eps,
-                               stream);
+                                          const void* b2, void* out, void* xn, void* h,
+                                          int rows, int D, int hidden, float eps,
+                                          void* stream) {
+  return launch<__nv_bfloat16>(x, ln_g, ln_b, w1, b1, w2, b2, out, xn, h, rows, D, hidden,
+                               eps, stream);
 }

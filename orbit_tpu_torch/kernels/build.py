@@ -47,10 +47,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, w, b, out, B, S, D, H, stream
     "orbit_fused_qkv_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "orbit_fused_qkv_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # the same with the wgmma route's sequences per row tile before the stream
+    "orbit_fused_qkv_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, ln_g, ln_b, w1, b1, w2, b2, out, rows, D, hidden, eps, stream
     "orbit_fused_mlp_block_f32": [_P] * 8 + [_I, _I, _I, _F, _P],
-    "orbit_fused_mlp_block_bf16": [_P] * 8 + [_I, _I, _I, _F, _P],
+    # the same with the wgmma route's workspaces xn and h after out
+    "orbit_fused_mlp_block_bf16": [_P] * 10 + [_I, _I, _I, _F, _P],
     # x, w, b, g, qkv, dqkv, partial, dx, dw, db, B, S, D, H, stream
     "orbit_fused_qkv_attention_bwd_f32": [_P] * 10 + [_I] * 4 + [_P],
     "orbit_fused_qkv_attention_bwd_bf16": [_P] * 10 + [_I] * 4 + [_P],

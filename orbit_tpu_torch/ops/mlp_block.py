@@ -27,7 +27,8 @@ import torch
 from orbit_tpu_torch.kernels import build as kbuild
 
 KERNEL_DIMS = (64, 128, 384, 768)  # D values the forward kernel is instantiated for
-HIDDEN_CHUNK = 64                  # the forward kernel walks hidden in these steps
+HIDDEN_CHUNK = 64                  # the FMA kernel walks hidden in these steps
+WGMMA_TILE_N = 128                 # the wgmma route's tile columns (fc1 and fc2)
 _DTYPES = (torch.float32, torch.bfloat16)
 _INV_SQRT_2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
@@ -71,6 +72,24 @@ def mlp_block_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, *,
     return y.to(dt)
 
 
+def mlp_block_stages(x, ln_scale, ln_bias, w1, b1, w2, b2, *, ln_eps: float = 1e-6):
+    """The plain version cut where the kernel's bf16 wgmma route cuts it
+    into launches: (xn, h, y), each in x.dtype, the LayerNorm launch's
+    output, fc1's (h rounded where the TPU kernel rounds hg) and fc2's. y
+    is :func:`mlp_block_reference`'s, bit for bit."""
+    _check_shapes(x, w1, w2)
+    dt = x.dtype
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mean
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + ln_eps)
+    xn = (xc * rstd * ln_scale.float() + ln_bias.float()).to(dt)
+    hpre = torch.matmul(xn.float(), w1.to(dt).float()) + b1.float()
+    h = (0.5 * hpre * (1.0 + torch.erf(hpre * _INV_SQRT_2))).to(dt)
+    y = (torch.matmul(h.float(), w2.to(dt).float()) + b2.float() + xf).to(dt)
+    return xn, h, y
+
+
 def mlp_block_backward_reference(x, ln_scale, ln_bias, w1, b1, w2, g, *,
                                  ln_eps: float = 1e-6):
     """Plain backward with the TPU kernel's rounding points
@@ -107,6 +126,14 @@ def _check_kernel_args(name: str, x, *others) -> None:
             raise ValueError(f"{name}: tensors on {t.device} and {x.device}")
 
 
+def wgmma_route(dtype, d: int, hidden: int) -> bool:
+    """Whether the forward kernel takes its bf16 wgmma route (three
+    launches: LayerNorm into an xn workspace, fc1 into an h workspace, fc2)
+    rather than the FMA kernel: bf16, with D (fc2's columns) and hidden
+    (fc1's) multiples of WGMMA_TILE_N (``launch_d`` in ``csrc/mlp_block.cu``)."""
+    return dtype == torch.bfloat16 and d % WGMMA_TILE_N == 0 and hidden % WGMMA_TILE_N == 0
+
+
 def _launch(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps: float):
     d = x.shape[-1]
     hidden = w1.shape[1]
@@ -115,21 +142,26 @@ def _launch(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps: float):
         raise ValueError(f"fused_mlp_block kernel needs D in {KERNEL_DIMS}, "
                          f"hidden a multiple of {HIDDEN_CHUNK} and rows >= 1; "
                          f"got D={d}, hidden={hidden}, shape {tuple(x.shape)}")
-    x = x.contiguous()
+    x = kbuild.aligned(x)
     rows = x.numel() // d
     f32 = [t.float().contiguous() for t in (ln_scale, ln_bias, b1, b2)]
     w1c = kbuild.aligned(w1.to(x.dtype))
     w2c = kbuild.aligned(w2.to(x.dtype))
     out = torch.empty_like(x)
+    args = [x.data_ptr(), f32[0].data_ptr(), f32[1].data_ptr(), w1c.data_ptr(),
+            f32[2].data_ptr(), w2c.data_ptr(), f32[3].data_ptr(), out.data_ptr()]
     lib = kbuild.library()
-    fn = (lib.orbit_fused_mlp_block_bf16 if x.dtype == torch.bfloat16
-          else lib.orbit_fused_mlp_block_f32)
+    if x.dtype == torch.bfloat16:
+        fn = lib.orbit_fused_mlp_block_bf16
+        # the wgmma route's workspaces, freed when the call returns
+        work = ([torch.empty((rows, n), device=x.device, dtype=x.dtype) for n in (d, hidden)]
+                if wgmma_route(x.dtype, d, hidden) else [])
+        args += [t.data_ptr() for t in work] or [None, None]
+    else:
+        fn = lib.orbit_fused_mlp_block_f32
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = fn(x.data_ptr(), f32[0].data_ptr(), f32[1].data_ptr(),
-                  w1c.data_ptr(), f32[2].data_ptr(), w2c.data_ptr(),
-                  f32[3].data_ptr(), out.data_ptr(), rows, d, hidden,
-                  float(ln_eps), stream)
+        code = fn(*args, rows, d, hidden, float(ln_eps), stream)
     kbuild.check(code, "fused_mlp_block")
     kbuild.LAUNCHES["fused_mlp_block"] += 1
     return out

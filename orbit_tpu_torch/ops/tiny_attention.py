@@ -39,6 +39,7 @@ from orbit_tpu_torch.kernels import build as kbuild
 
 HEAD_DIM = 64      # the kernel's head width (every supported ViT)
 MAX_TOKENS = 64    # the kernel's longest sequence (50 tokens at 224 px)
+ROW_TILE = 128     # rows of x per block of kernel A's bf16 route
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -159,20 +160,31 @@ def _check_kernel_args(name: str, x, d: int, num_heads: int, *others) -> None:
             raise ValueError(f"{name}: tensors on {t.device} and {x.device}")
 
 
+def sequence_tiles(b: int, s: int) -> tuple[int, int]:
+    """The bf16 route's row tiles of kernel A (``csrc/fused_qkv_attention.cu``):
+    (sequences per tile, tiles). A tile packs floor(ROW_TILE / S) whole
+    sequences of B; tile t holds sequences t*n .. min(B, (t+1)*n) - 1."""
+    n = ROW_TILE // s
+    return n, -(-b // n)
+
+
 def _launch(x, kernel, bias, num_heads: int) -> torch.Tensor:
     _check_kernel_args("fused_qkv_attention", x, x.shape[-1], num_heads, kernel, bias)
     n, s, d = x.shape
-    x = x.contiguous()
+    x = kbuild.aligned(x)
     w = kbuild.aligned(kernel.to(x.dtype))
-    b = bias.to(x.dtype).contiguous()
+    b = kbuild.aligned(bias.to(x.dtype))
     out = torch.empty_like(x)
+    args = [x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), n, s, d, num_heads]
     lib = kbuild.library()
-    fn = (lib.orbit_fused_qkv_attention_bf16 if x.dtype == torch.bfloat16
-          else lib.orbit_fused_qkv_attention_f32)
+    if x.dtype == torch.bfloat16:
+        fn = lib.orbit_fused_qkv_attention_bf16
+        args.append(sequence_tiles(n, s)[0])
+    else:
+        fn = lib.orbit_fused_qkv_attention_f32
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                  n, s, d, num_heads, stream)
+        code = fn(*args, stream)
     kbuild.check(code, "fused_qkv_attention")
     kbuild.LAUNCHES["fused_qkv_attention"] += 1
     return out
