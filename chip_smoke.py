@@ -7,9 +7,11 @@
 Phases, each of which passes or raises:
 1. card: the ``nvidia-smi`` name and power limit;
 2. build: the CUDA kernels from ``orbit_tpu_torch/csrc``, timed, and the
-   registers and spills of the kernels of A's and B's bf16 wgmma routes
-   (from nvcc's ``-Xptxas -v`` log);
-3. kernels: kernel A (fused qkv attention), kernel B (fused MLP block) and
+   registers and spills of the kernels of the bf16 wgmma routes of A, B,
+   #4 and #6 (from nvcc's ``-Xptxas -v`` log);
+3. kernels: the wgmma mainloop alone in every operand layout and tile
+   width against ``torch.matmul`` on a ragged shape; kernel A (fused qkv
+   attention), kernel B (fused MLP block) and
    their backward kernels against their plain PyTorch versions on the card,
    at the ViT-B/32 and ViT-S/32 shapes (B = 256 and a ragged 13, S = 50), in
    f32 and bf16; the fused depthwise tail (#8) at EfficientNet-B0's 12
@@ -21,9 +23,11 @@ Phases, each of which passes or raises:
    and 13, f32 and bf16), also timed against
    ``F.scaled_dot_product_attention`` and its backward; each timed with
    CUDA events at B = 256 and at #7's path shape, beside its bound, and
-   repeated to show that a second call gives the same bits; beside A and B
-   cuBLAS bf16 on their products alone (x @ W; xn @ W1 and h @ W2), a
-   yardstick the port never calls; and A, B, #4 and #6 timed at the ViT
+   repeated to show that a second call gives the same bits; A, B, #4 and
+   #6 also back to back, beside cuBLAS bf16 on their products alone (x @
+   W; xn @ W1 and h @ W2; #4's three and #6's five), a yardstick the port
+   never calls, and #4 and #6 with a ``torch.profiler`` breakdown of one
+   call by launch; and A, B, #4 and #6 timed at the ViT
    train path's other batch sizes (44, the ragged target batch, and 16,
    the LITE grad subset);
 4. ViT path: the CLU-VE test protocol of the port's single-step learner on
@@ -48,7 +52,9 @@ Phases, each of which passes or raises:
    in every encoder layer of both differentiated forwards of every target
    batch; the losses must be finite and every update must move the
    parameters; on one task, with the same injected subsets, the gradients
-   through the kernels must agree with those through the plain versions.
+   through the kernels must agree with those through the plain versions;
+   a ``torch.profiler`` trace of one warm task step; the median and range
+   of the time per task step and the peak device memory.
 6. SimpleCNAPs path: phase 4's protocol, tasks and checks on
    EfficientNet-B0 at full width (224 px, all 16 MBConv blocks, D = 1280)
    with ``--adapt_features --classifier mahalanobis``: the set encoder, the
@@ -61,7 +67,10 @@ Phases, each of which passes or raises:
    Beside the kernels-vs-plain check, phase 7's witness (#8's plain
    version with its f32 stages in f64) against the plain version is
    printed: what a change of f32 rounding alone does to the features, the
-   logits and the argmax.
+   logits and the argmax; and, for every frame whose argmax differs
+   between the kernels and the plain versions, the plain logits' top-1 to
+   top-2 margin, absolute and in bf16 ulps of the top logit, beside that
+   frame's largest kernels-vs-plain logit difference.
 7. FiLM train path: SimpleCNAPs meta-training with LITE on EfficientNet-B0
    at full width, through the learner in ``--mode train_test``
    (``--adapt_features --classifier mahalanobis --with_lite
@@ -83,9 +92,15 @@ B from phase 4, #4 and #6 from phase 5, #7 and #8 from phase 6; #1 and #2
 are on no path and report their launches over phases 4 to 7 together,
 which must be 0; their checks and times are phase 3's; ``launches_by_path``
 gives every kernel's launches on each path, ``gemm_ms`` the cuBLAS
-yardstick of A and B); the
+yardstick of A, B, #4 and #6); the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --breakdown-only DIR
+
+prints only the per-launch breakdown of #4 and #6 (ViT-B/32, B = 256, bf16)
+with the ``orbit_tpu_torch`` package found in DIR (a checkout of another
+commit, to set the kernels of two commits side by side in one call).
 """
 from __future__ import annotations
 
@@ -189,10 +204,13 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 
 
-# the kernels of the bf16 wgmma routes of A and B (csrc/wgmma.cuh), whose
-# registers and spills phase 2 prints from nvcc's -Xptxas -v output
+# the kernels of the bf16 wgmma routes of A, B, #4 and #6 (csrc/wgmma.cuh)
+# and the mainloop's layout check, whose registers and spills phase 2
+# prints from nvcc's -Xptxas -v output
 WGMMA_KERNELS = ("fused_qkv_attention_wgmma_kernel", "fused_mlp_block_layernorm_kernel",
-                 "fused_mlp_block_gemm_kernel")
+                 "fused_mlp_block_gemm_kernel", "qkv_recompute_kernel",
+                 "attention_bwd_mma_kernel", "mlp_bwd_hidden_kernel", "grads_kernel",
+                 "layer_norm_kernel", "layer_norm_backward_kernel", "wgmma_check_kernel")
 
 
 def print_registers(log: Path, names) -> None:
@@ -207,11 +225,17 @@ def print_registers(log: Path, names) -> None:
         if name is None or m.group(1) in seen:
             continue
         seen.add(m.group(1))
-        # the template argument: LayerNorm's width, or fc1's or fc2's epilogue
-        arg = re.search(r"ILi(\d+)E|(GeluStore|ResidualStore)", m.group(1))
+        # the template arguments: a width, an epilogue, a storage type, the
+        # mainloop's operand layouts
+        args = [a for pat in (r"I(f)[EL]", r"I13__nv_(bfloat16)", r"Li(\d+)E",
+                              r"(GeluStore|ResidualStore)") for a in re.findall(pat, m.group(1))]
+        args = ["float" if a == "f" else a for a in args]
+        args += ["K" if a == "0" else "MN" for a in
+                 re.findall(r"L(?:N5orbit2wg5MajorE|S\d*_)(\d)E", m.group(1))]
+        tag = "<" + ",".join(args) + ">" if args else ""
         info = " ".join(x.split("ptxas info    : ")[-1].strip() for x in lines[i + 1:i + 4]
                         if "bytes stack" in x or "Used" in x)
-        print(f"  {name}{f'<{arg.group(1) or arg.group(2)}>' if arg else ''}: {info}")
+        print(f"  {name}{tag}: {info}")
     if not seen:
         print(f"  registers: no entry in {log} (nvcc's log not found)")
 
@@ -457,38 +481,135 @@ def kernel_phase(torch, card: str) -> dict:
                         if vit == "vit_b_32" and dtype_name == "bfloat16":
                             rows[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                               bound_by=bound_by)
-                            if name in ("fused_qkv_attention", "fused_mlp_block"):
-                                with torch.inference_mode():
-                                    b2b = cuda_ms_back_to_back(lambda: run(None))
-                                line += f"; back to back {b2b:.4f} ms a call"
+                            with torch.inference_mode():
+                                b2b = cuda_ms_back_to_back(lambda: run(None))
+                            line += f"; back to back {b2b:.4f} ms a call"
                     rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], max_abs)
                     print(line)
                 if vit == "vit_b_32" and dtype_name == "bfloat16" and b == 256:
-                    gemm_yardstick(torch, rows, x, qkv, mlp)
+                    gemm_yardstick(torch, rows, x, qkv, mlp, cot)
+                    for name in ("fused_qkv_attention_bwd", "fused_mlp_block_bwd"):
+                        launch_breakdown(torch, lambda: runs[name](None), name, card)
     train_shapes_phase(torch, randn)
     return rows
 
 
-def gemm_yardstick(torch, rows: dict, x, qkv, mlp) -> None:
-    """cuBLAS bf16 on kernels A's and B's products alone, at their inputs
-    (x @ W for A; xn @ W1 and h @ W2 for B, xn and h from the staged plain
-    version): a yardstick of what the tensor cores give a library GEMM at
-    these shapes. The port never calls it."""
-    from orbit_tpu_torch.ops.mlp_block import mlp_block_stages
+def gemm_yardstick(torch, rows: dict, x, qkv, mlp, cot) -> None:
+    """cuBLAS bf16 on the ViT kernels' products alone, at their inputs: A's
+    x @ W; B's xn @ W1 and h @ W2 (xn and h from the staged plain version);
+    #4's x @ W, cast(dqkv) @ W^T and x^T @ cast(dqkv); #6's xn @ W1,
+    g @ W2^T, cast(dhpre) @ W1^T, xn^T @ cast(dhpre) and hg^T @ g (the
+    operands from the staged plain backwards; a transpose is cuBLAS's
+    operand flag, no copy). A yardstick of what the tensor cores give a
+    library GEMM at these shapes; the port never calls it."""
+    from orbit_tpu_torch.ops.mlp_block import mlp_block_backward_stages, mlp_block_stages
+    from orbit_tpu_torch.ops.tiny_attention import qkv_attention_backward_stages
     x2 = x.reshape(-1, x.shape[-1])
+    heads = x.shape[-1] // 64
     with torch.inference_mode():
         xn, h, _ = mlp_block_stages(x, *mlp, ln_eps=1e-6)
         xn, h = xn.reshape(x2.shape), h.reshape(x2.shape[0], -1)
+        (_, hg, dhb, _), _ = mlp_block_backward_stages(x, *mlp[:5], cot, ln_eps=1e-6)
+        hg, dhb = hg.reshape(h.shape), dhb.reshape(h.shape)
+        (_, dqkv), _ = qkv_attention_backward_stages(x, *qkv, cot, heads)
+        g2 = cot.reshape(x2.shape)
         w1, w2 = mlp[2].contiguous(), mlp[4].contiguous()
         w = qkv[0].contiguous()
-        a_ms = cuda_ms(lambda: torch.matmul(x2, w))
-        fc1_ms = cuda_ms(lambda: torch.matmul(xn, w1))
-        fc2_ms = cuda_ms(lambda: torch.matmul(h, w2))
-    rows["fused_qkv_attention"]["gemm_ms"] = a_ms
-    rows["fused_mlp_block"]["gemm_ms"] = fc1_ms + fc2_ms
-    print(f"  cuBLAS bf16 yardstick (never called by the port), ViT-B/32 B=256: A's x @ W "
-          f"{a_ms:.4f} ms; B's xn @ W1 {fc1_ms:.4f} ms + h @ W2 {fc2_ms:.4f} ms = "
-          f"{fc1_ms + fc2_ms:.4f} ms")
+        products = {
+            "fused_qkv_attention": {"x @ W": (x2, w)},
+            "fused_mlp_block": {"xn @ W1": (xn, w1), "h @ W2": (h, w2)},
+            "fused_qkv_attention_bwd": {"x @ W": (x2, w), "dqkv @ W^T": (dqkv, w.t()),
+                                        "x^T @ dqkv": (x2.t(), dqkv)},
+            "fused_mlp_block_bwd": {"xn @ W1": (xn, w1), "g @ W2^T": (g2, w2.t()),
+                                    "dhb @ W1^T": (dhb, w1.t()), "xn^T @ dhb": (xn.t(), dhb),
+                                    "hg^T @ g": (hg.t(), g2)}}
+        for name, prods in products.items():
+            ms = {p: cuda_ms(lambda a=a, b=b: torch.matmul(a, b)) for p, (a, b) in prods.items()}
+            rows[name]["gemm_ms"] = sum(ms.values())
+            print(f"  cuBLAS bf16 yardstick (never called by the port), ViT-B/32 B=256, {name}: "
+                  + " + ".join(f"{p} {t:.4f}" for p, t in ms.items())
+                  + f" = {sum(ms.values()):.4f} ms")
+
+
+def launch_breakdown(torch, fn, label: str, card: str, calls: int = 5) -> None:
+    """``calls`` warm calls of ``fn`` under ``torch.profiler``: each
+    launch's device time per call and its share of the call's device
+    time, the launches in the order of their time."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    times = {}
+    for evt in prof.key_averages():
+        us = evt.self_device_time_total
+        if evt.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            times[evt.key] = times.get(evt.key, 0.0) + us / 1e3 / calls
+    total = sum(times.values())
+    if total <= 0:
+        print(f"  {label} by launch ({card}): the profiler recorded no device time (not measured)")
+        return
+    print(f"  {label} by launch, ViT-B/32 B=256 bf16, device time a call {total:.4f} ms ({card}):")
+    for key, ms in sorted(times.items(), key=lambda kv: -kv[1]):
+        print(f"    {ms:.4f} ms ({100 * ms / total:.1f}%)  {key[:100]}")
+
+
+def breakdown_only(torch, root: Path) -> None:
+    """``--breakdown-only``: phase 3's per-launch breakdown of #4 and #6
+    with the ``orbit_tpu_torch`` package under ``root``."""
+    sys.path.insert(0, str(root))
+    import orbit_tpu_torch
+    from orbit_tpu_torch.models.precision import configure_matmul_precision
+    from orbit_tpu_torch.ops import fused_mlp_block_backward, fused_qkv_attention_backward
+    configure_matmul_precision()
+    card = card_line()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    d, heads = 768, 12
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+    x, cot = randn(256, 50, d).bfloat16(), randn(256, 50, d).bfloat16()
+    qkv = (randn(d, 3 * d, scale=d ** -0.5).bfloat16(), randn(3 * d, scale=0.1).bfloat16())
+    mlp = (1 + randn(d, scale=0.1), randn(d, scale=0.1),
+           randn(d, 4 * d, scale=d ** -0.5).bfloat16(), randn(4 * d, scale=0.02),
+           randn(4 * d, d, scale=(4 * d) ** -0.5).bfloat16())
+    print(f"orbit_tpu_torch from {Path(orbit_tpu_torch.__file__).parent} ({card})")
+    launch_breakdown(torch, lambda: fused_qkv_attention_backward(x, *qkv, cot, heads),
+                     "fused_qkv_attention_bwd", card)
+    launch_breakdown(torch, lambda: fused_mlp_block_backward(x, *mlp, cot, ln_eps=1e-6),
+                     "fused_mlp_block_bwd", card)
+
+
+def mainloop_layout_phase(torch, card: str) -> None:
+    """Phase 3, first: the wgmma mainloop alone (csrc/wgmma_check.cu) in
+    every (A major, B major, tile width) against torch.matmul of the same
+    bf16 operands on a ragged M = 200, N = 320, K = 328: exact products,
+    f32 sums in another order, within 1e-5 of the largest value."""
+    import itertools
+
+    from orbit_tpu_torch.kernels import build as kbuild
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    a = torch.randn(200, 328, generator=g, device=dev).bfloat16()
+    b = torch.randn(328, 320, generator=g, device=dev).bfloat16()
+    ref = a.float() @ b.float()
+    parts = []
+    for a_mn, b_k, bn in itertools.product((False, True), (False, True), (128, 192)):
+        c = kbuild.mainloop_product(a.t().contiguous() if a_mn else a,
+                                    b.t().contiguous() if b_k else b, a_mn=a_mn, b_k=b_k, bn=bn)
+        torch.cuda.synchronize()
+        rel = float((c - ref).abs().max()) / float(ref.abs().max())
+        what = f"A {'MN' if a_mn else 'K'}-major, B {'K' if b_k else 'MN'}-major, BN {bn}"
+        if not rel <= 1e-5:
+            raise AssertionError(f"wgmma mainloop, {what}: differs from torch.matmul by {rel:.3e} "
+                                 f"of the largest value")
+        parts.append(f"{what} {rel:.2e}")
+    print(f"wgmma mainloop vs torch.matmul, M=200 N=320 K=328 ({card}), max rel: "
+          + "; ".join(parts))
 
 
 # the batch sizes besides 256 at which the ViT-B/32 train path runs kernels
@@ -917,6 +1038,10 @@ def train_path_phase(torch, card: str, workdir: Path, extractor: str = "vit_b_32
     print(f"  under a fixed upstream gradient: {len(fixed[None])} gradient tensors agree "
           f"within {PATH_REL_TOL} of their largest value, max abs {worst:.3e}")
     del grads, fixed
+    # one warm LITE step under the profiler: device time by kernel group
+    # and the device's idle share
+    device_breakdown(torch, lambda: step(episode, grad_idxs=subsets), card)
+    rec.zero_grad(set_to_none=True)
 
     # the learner's run, with its updates and losses checked
     forwards = [0]
@@ -1166,7 +1291,13 @@ def device_breakdown(torch, fn, card: str) -> None:
 
     from torch.profiler import ProfilerActivity, profile
 
-    groups = (("A fused_qkv_attention", r"fused_qkv_attention"),
+    groups = (("#4 fused_qkv_attention_bwd", r"qkv_recompute|attention_bwd_mma|"
+                                              r"grads_kernel<__nv_bfloat16>"),
+              # the anonymous namespace keeps PyTorch's vectorized_layer_norm_kernel out
+              ("#6 fused_mlp_block_bwd", r"mlp_bwd_hidden|grads_kernel<float>|"
+                                         r"namespace\)::layer_norm_(kernel|backward)"),
+              ("#4 and #6 second passes (vector gradients)", r"sum_partials"),
+              ("A fused_qkv_attention", r"fused_qkv_attention"),
               ("B fused_mlp_block", r"fused_mlp_block"),
               ("#8 fused_dw_act", r"fused_dw_kernel"),
               ("#7 mahalanobis_logits", r"mahalanobis_(partial|finish)"),
@@ -1332,6 +1463,19 @@ def eval_path_phase(torch, card: str, workdir: Path, label: str, flags: list,
         print(f"  kernels vs plain, task 0 {what}: max abs {max_abs:.3e}, max rel {max_rel:.3e}")
     agree = agreement(lk)
     print(f"  argmax agreement on {int(real.sum())} real query frames: {agree:.4f}")
+    # the frames whose argmax flips: how close the plain route's top two
+    # logits were, against the bf16 ulp at the top logit (2^(e - 7) for a
+    # value in [2^e, 2^(e+1))) and the frame's kernels-vs-plain difference
+    flips = np.nonzero((lk.argmax(-1) != lr.argmax(-1)).cpu().numpy() & real)[0]
+    if len(flips):
+        top2 = lr[:, present].topk(2, dim=-1).values[flips].cpu()
+        diff = (lk[:, present] - lr[:, present]).abs().amax(dim=-1)[flips].cpu()
+        margin = top2[:, 0] - top2[:, 1]
+        ulp = torch.exp2(torch.floor(torch.log2(top2[:, 0].abs())) - 7)
+        print(f"  {len(flips)} flipped frames, plain top-1 minus top-2 logit (bf16 ulps of the "
+              f"top logit; the frame's largest kernels-vs-plain logit difference): "
+              + ", ".join(f"{float(m):.3e} ({float(m / u):.2f} ulp; {float(d):.3e})"
+                          for m, u, d in zip(margin, ulp, diff)))
     if "wide" in out:
         fw, lw = out["wide"]
         print(f"  witness (#8's f32 stages in f64) vs plain, task 0: features max rel "
@@ -1373,7 +1517,11 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=SEED,
                         help="seed of the weights, the synthetic tasks, the grad subsets and "
                              "the kernels' inputs (default %(default)s)")
-    SEED = parser.parse_args(argv).seed
+    parser.add_argument("--breakdown-only", type=Path, metavar="DIR",
+                        help="print only the per-launch breakdown of #4 and #6 with the "
+                             "orbit_tpu_torch package under DIR")
+    opts = parser.parse_args(argv)
+    SEED = opts.seed
     if not (REPO / "orbit_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from the root of an orbit-tpu checkout "
               "(orbit_tpu_torch/ not found)", file=sys.stderr)
@@ -1383,6 +1531,9 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; the port's kernels run only on a GPU",
               file=sys.stderr)
         return 2
+    if opts.breakdown_only:
+        breakdown_only(torch, opts.breakdown_only.resolve())
+        return 0
     sys.path.insert(0, str(REPO))
 
     # phase 1: card
@@ -1401,7 +1552,8 @@ def main(argv=None) -> int:
           f"-> {kbuild.library_path()}")
     print_registers(kbuild.library_path().parent / "nvcc.log", WGMMA_KERNELS)
 
-    # phase 3: kernels vs plain versions
+    # phase 3: the mainloop's layouts, then kernels vs plain versions
+    mainloop_layout_phase(torch, card)
     rows = kernel_phase(torch, card)
     rows["fused_dw_act"] = dw_kernel_phase(torch, card)
     rows["mahalanobis_logits"] = mahalanobis_kernel_phase(torch, card)

@@ -1,8 +1,8 @@
 // Per-(batch row, head) attention stages shared by kernel A (fused qkv
 // projection + attention, fused_qkv_attention.cu), its backward (#4,
-// fused_qkv_attention_bwd.cu) and the unfused attention on a raw qkv
-// (#1 and #2, tiny_attention.cu). Each stage works on one head of one
-// batch row, S <= 64 tokens of head width 64, with the TPU kernels'
+// fused_qkv_attention_bwd.cu: the f32 route's block) and the unfused
+// attention on a raw qkv (#1 and #2, tiny_attention.cu). Each stage works
+// on one head of one batch row, S <= 64 tokens of head width 64, with the TPU kernels'
 // rounding points (orbit_tpu/ops/tiny_attention.py::_head_softmax,
 // _attend_blocked, _attend_blocked_bwd):
 //   scores = (q k^T) * (1/sqrt(hd)) in f32, p = softmax_f32(scores),
@@ -20,6 +20,7 @@
 #include <mma.h>
 
 #include <cmath>
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -29,6 +30,39 @@ namespace attn {
 constexpr int kHeadDim = 64;     // hd of every supported ViT
 constexpr int kMaxTokens = 64;   // S <= 64 (50 at 224 px, 5 at 84 px)
 constexpr int kThreads = 256;    // 8 warps per block
+
+// ---------------------------------------------------------------------------
+// mma.sync helpers of the tensor-core attention stages (kernel A's forward,
+// #4's backward): ldmatrix of four 8 x 8 bf16 tiles (rows of 16 bytes; lane
+// l gives the address of row l % 8 of tile l / 8), plain or transposed, and
+// the m16n8k16 product with f32 accumulators.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void ldsm_x4(const void* p, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(const void* p, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16) . b (16 x 8, bf16)
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
 // ---------------------------------------------------------------------------
 // Forward on the CUDA cores (f32 FMA): q, k, v hold the f32 values of their

@@ -47,6 +47,10 @@ namespace {
 
 using orbit::round_to;
 using orbit::to_float;
+using orbit::attn::ldsm_x4;
+using orbit::attn::ldsm_x4_t;
+using orbit::attn::mma_16816;
+using orbit::attn::pack_bf16;
 using orbit::attn::kHeadDim;
 using orbit::attn::kMaxTokens;
 using orbit::attn::kQkvLd;
@@ -177,33 +181,6 @@ constexpr size_t kQkvBytes = 3ull * kQkvRows * kSLd * sizeof(__nv_bfloat16);
 constexpr size_t kWgSmemBytes = WgRing::kSmemBytes;
 static_assert(kQkvBytes <= WgRing::kStages * WgRing::kStageBytes,
               "q, k, v must fit in the pipeline's stages");
-
-__device__ __forceinline__ void ldsm_x4(const void* p, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(orbit::wg::smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(const void* p, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(orbit::wg::smem_addr(p)));
-}
-
-// c (16 x 8, f32) += a (16 x 16, bf16) . b (16 x 8, bf16)
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // One warp: query rows q0..q0+15 of the sequence whose S rows start at
 // row r0 of the q, k, v tiles; out rows < S go to ob (out[first row of the

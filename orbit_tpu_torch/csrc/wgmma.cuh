@@ -1,13 +1,14 @@
 // The Hopper GEMM mainloop shared by the bf16 routes of kernel A
-// (fused_qkv_attention.cu) and kernel B (mlp_block.cu): a block computes a
-// 128 x BN tile of C = A . B, A (M x K) and B (K x N) row-major bf16 in
-// device memory, with f32 sums in registers.
+// (fused_qkv_attention.cu), kernel B (mlp_block.cu) and their backward
+// kernels #4 (fused_qkv_attention_bwd.cu) and #6 (mlp_block_bwd.cu): a
+// block computes a 128 x BN tile of C = A . B, bf16 operands in device
+// memory, with f32 sums in registers.
 //
 // Shape of a block (288 threads): warpgroups 0 and 1 are the consumers,
 // warp 8 the producer. One producer thread keeps a ring of kStages
 // shared-memory stages filled by TMA (cp.async.bulk.tensor, 128-byte
-// swizzle), each stage one 128 x 64 box of A and BN/64 boxes of 64 x 64 of
-// B, reporting completion to a "full" mbarrier per stage. Each consumer
+// swizzle), each stage 64 K-slices of A (16 KB) and BN/64 boxes of B (8 KB
+// each), reporting completion to a "full" mbarrier per stage. Each consumer
 // warpgroup owns 64 rows of the tile and issues wgmma.mma_async m64nBNk16
 // (bf16 in, f32 accumulate) on every stage that has landed, keeps one
 // stage's products in flight, and frees the stage before it on an "empty"
@@ -16,20 +17,32 @@
 // row and column). With a small ring two blocks share an SM, and one
 // block's epilogue overlaps the other's products.
 //
-// A is read K-major (its rows are K-contiguous, as wgmma wants). B is read
-// MN-major through wgmma's transpose bit, so the weights keep their
-// (in, out) layout and no transposed copy is made. The B boxes' columns are
+// Operand layouts (Major), each a row-major bf16 matrix in device memory:
+//   A K-major:  A itself, (M x K), K contiguous: one 128-row x 64 box a stage;
+//   A MN-major: A^T stored, (K x M), M contiguous: two 64 x 64 boxes a stage,
+//               one per consumer warpgroup (dW = x^T . dy reads x so);
+//   B MN-major: B itself, (K x N), N contiguous: the weights in their
+//               (in, out) layout, no transposed copy;
+//   B K-major:  B^T stored, (N x K), K contiguous (y . W^T reads W so).
+// An MN-major operand goes through wgmma's transpose bit. In shared memory
+// a K-major operand is rows of 128 bytes (64 K values), 8-row groups 1024
+// bytes apart, and a product of 16 K values starts 32 bytes on; an
+// MN-major one is 64-wide MN atoms (kBBoxBytes apart), each 64 K rows of
+// 128 bytes, and 16 K values start 2048 bytes on. The boxes' positions are
 // the caller's: consecutive tiles for a plain product, or the q, k and v
 // columns of one head for kernel A.
 //
-// Deterministic: every output tile is owned by one block, which walks all
-// of K itself in a fixed order; no split K, no atomics.
+// Deterministic: every output tile is owned by one block, which walks its
+// K range itself in a fixed order; no atomics. A block may run several
+// products through one ring (run(), the ring's position carried in `it`).
 //
 // Host side: make_tmap_2d encodes a TMA descriptor with libcuda's
 // cuTensorMapEncodeTiled, whose address the CUDA runtime hands out
 // (cudaGetDriverEntryPoint), so the library does not link libcuda. Descriptors are encoded on the host for
-// every call and passed to the kernel as __grid_constant__ parameters. Rows past M read as zeros (TMA fills the
-// part of a box outside the tensor); the caller's epilogue drops them.
+// every call and passed to the kernel as __grid_constant__ parameters. Rows
+// and columns past a matrix's edge read as zeros (TMA fills the part of a
+// box outside the tensor): ragged M, N and K need no masking of the sums,
+// and the caller's epilogue drops the rows and columns past the output.
 #pragma once
 
 #include <cuda.h>
@@ -49,9 +62,11 @@ constexpr int kBoxN = 64;          // columns of one B box
 constexpr int kABytes = kBM * kBK * 2;       // 16 KB
 constexpr int kBBoxBytes = kBK * kBoxN * 2;  // 8 KB
 
+enum class Major { K, MN };
+
 template <int BN, int kStageCount>
 struct Ring {
-  static_assert(BN == 128 || BN == 192, "tiles of 128 (kernel B) or 192 (kernel A) columns");
+  static_assert(BN == 128 || BN == 192, "tiles of 128 (B, #4, #6) or 192 (A) columns");
   static constexpr int kStageBytes = kABytes + (BN / kBoxN) * kBBoxBytes;
   static constexpr int kStages = kStageCount;
   // 1 KB of slack: the stages are aligned to 1024 bytes (the swizzle's period)
@@ -170,8 +185,10 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64 x N, f32) += A (64 x 16, K-major) . B (16 x N, MN-major), bf16 in.
-// The trailing immediates: scale-a 1, scale-b 1, transpose-a 0, transpose-b 1.
+// d (64 x N, f32) += A (64 x 16) . B (16 x N), bf16 in. The trailing
+// immediates: scale-a 1, scale-b 1, transpose-a TA, transpose-b TB (0: the
+// operand is K-major in shared memory, 1: MN-major).
+template <int TA, int TB>
 __device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t desc_a,
                                                uint64_t desc_b) {
   asm volatile(
@@ -183,7 +200,7 @@ __device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t desc_a,
       "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
       "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -195,9 +212,10 @@ __device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t desc_a,
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TA), "n"(TB));
 }
 
+template <int TA, int TB>
 __device__ __forceinline__ void mma_m64n192k16(float (&d)[96], uint64_t desc_a,
                                                uint64_t desc_b) {
   asm volatile(
@@ -211,7 +229,7 @@ __device__ __forceinline__ void mma_m64n192k16(float (&d)[96], uint64_t desc_a,
       "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
       "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
       "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-      "}, %96, %97, p, 1, 1, 0, 1;\n}\n"
+      "}, %96, %97, p, 1, 1, %99, %100;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -228,13 +246,14 @@ __device__ __forceinline__ void mma_m64n192k16(float (&d)[96], uint64_t desc_a,
         "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
         "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
         "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TA), "n"(TB));
 }
 
-template <int BN>
+template <int BN, Major kA, Major kB>
 __device__ __forceinline__ void mma(float (&d)[BN / 2], uint64_t da, uint64_t db) {
-  if constexpr (BN == 128) mma_m64n128k16(d, da, db);
-  else mma_m64n192k16(d, da, db);
+  constexpr int ta = kA == Major::MN, tb = kB == Major::MN;
+  if constexpr (BN == 128) mma_m64n128k16<ta, tb>(d, da, db);
+  else mma_m64n192k16<ta, tb>(d, da, db);
 }
 
 // ---- the mainloop ----
@@ -247,43 +266,67 @@ __device__ __forceinline__ unsigned char* ring_base(unsigned char* raw) {
   return raw + ((1024 - (a & 1023)) & 1023);
 }
 
-// The whole mainloop of one tile. Every thread of the block calls it; the
-// consumers (threads below 256) return with their accumulators (row r of
-// the tile for consumer warpgroup w is 64 w + r), the producer warp with
-// acc untouched. a_row: the tile's first row of A; b_col[j]: the first column
-// of B box j; nk: K / 64. The barriers are initialised here; the function
-// ends with every stage consumed and no copy in flight, but without a
-// block-wide barrier.
+// Initialises the ring's barriers; every thread of the block calls it
+// once, before the first run().
 template <int BN, int kStageCount>
-__device__ __forceinline__ void mainloop(const CUtensorMap* map_a, const CUtensorMap* map_b,
-                                         int a_row, const int (&b_col)[BN / kBoxN], int nk,
-                                         unsigned char* base, float (&acc)[BN / 2]) {
+__device__ __forceinline__ void ring_init(unsigned char* base) {
+  using R = Ring<BN, kStageCount>;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + R::kStages * R::kStageBytes);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < R::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&full[R::kStages + s], kConsumerWarps);  // the empty barriers
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// One product of a tile through the ring: acc = sum over k < nk of the
+// stage pairs (A, B), 64 K values a stage, starting at K = 64 k0. Every
+// thread of the block calls it; the consumers (threads below 256) return
+// with their accumulators (row r of the tile for consumer warpgroup w is
+// 64 w + r), the producer warp with acc untouched. a_off: the tile's first
+// row of A (K-major) or first column of A^T (MN-major); b_off[j]: the
+// first column (MN-major) or row (K-major) of B's box j. `it` counts the
+// stages the ring has passed through, in every thread alike; the function
+// ends with every stage of this product consumed and freed and no copy in
+// flight, but without a block-wide barrier, so the next run() may follow
+// at once.
+template <int BN, int kStageCount, Major kA, Major kB>
+__device__ __forceinline__ void run(const CUtensorMap* map_a, const CUtensorMap* map_b,
+                                    int a_off, const int (&b_off)[BN / kBoxN], int k0, int nk,
+                                    unsigned char* base, float (&acc)[BN / 2], uint32_t& it) {
   using R = Ring<BN, kStageCount>;
   constexpr int kStages = R::kStages;
   uint64_t* full = reinterpret_cast<uint64_t*>(base + kStages * R::kStageBytes);
   uint64_t* empty = full + kStages;
   const int tid = threadIdx.x;
   const int wgi = tid / 128;
-  if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumerWarps);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  const uint32_t it0 = it;
+  it += nk;
 
   if (wgi == 2) {
     if (tid == 2 * 128) {  // producer: one thread issues every copy
       for (int k = 0; k < nk; ++k) {
-        const int s = k % kStages;
-        if (k >= kStages) mbar_wait(&empty[s], ((k / kStages) & 1) ^ 1);
+        const uint32_t i = it0 + k;
+        const int s = i % kStages;
+        if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
         unsigned char* st = base + s * R::kStageBytes;
+        const int kc = (k0 + k) * kBK;  // first K value of the stage
         mbar_expect_tx(&full[s], R::kStageBytes);
-        tma_load(st, map_a, &full[s], k * kBK, a_row);
+        if constexpr (kA == Major::K) {
+          tma_load(st, map_a, &full[s], kc, a_off);
+        } else {
+          tma_load(st, map_a, &full[s], a_off, kc);
+          tma_load(st + kBBoxBytes, map_a, &full[s], a_off + kBoxN, kc);
+        }
 #pragma unroll
-        for (int j = 0; j < BN / kBoxN; ++j)
-          tma_load(st + kABytes + j * kBBoxBytes, map_b, &full[s], b_col[j], k * kBK);
+        for (int j = 0; j < BN / kBoxN; ++j) {
+          unsigned char* dst = st + kABytes + j * kBBoxBytes;
+          if constexpr (kB == Major::MN) tma_load(dst, map_b, &full[s], b_off[j], kc);
+          else tma_load(dst, map_b, &full[s], kc, b_off[j]);
+        }
       }
     }
     return;
@@ -293,27 +336,46 @@ __device__ __forceinline__ void mainloop(const CUtensorMap* map_a, const CUtenso
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
   fence_acc(acc);
   const int lane = tid % 32;
+  // A K-major: 8-row groups 1024 bytes apart, 16 K values = 32 bytes on;
+  // A MN-major: this warpgroup's 64-column box, 8 K-row groups 1024 bytes
+  // apart, 16 K rows = 2048 bytes on; B MN-major: 64-column boxes
+  // kBBoxBytes apart, the same K steps; B K-major: BN rows of 128 bytes,
+  // 8-row groups 1024 bytes apart, 16 K values = 32 bytes on
+  constexpr uint32_t kStepA = kA == Major::K ? 32 : 2048;
+  constexpr uint32_t kStepB = kB == Major::K ? 32 : 2048;
+  constexpr uint32_t kLboA = kA == Major::K ? 16 : kBBoxBytes;
+  constexpr uint32_t kLboB = kB == Major::K ? 16 : kBBoxBytes;
   for (int k = 0; k < nk; ++k) {
-    const int s = k % kStages;
-    mbar_wait(&full[s], (k / kStages) & 1);
+    const uint32_t i = it0 + k;
+    const int s = i % kStages;
+    mbar_wait(&full[s], (i / kStages) & 1);
     const unsigned char* st = base + s * R::kStageBytes;
     const unsigned char* a = st + wgi * 64 * kBK * 2;  // this warpgroup's 64 rows
     const unsigned char* b = st + kABytes;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      // A: K-major, 8-row groups 1024 bytes apart, 16 columns = 32 bytes on;
-      // B: MN-major, 64-column boxes kBBoxBytes apart, 8-row groups 1024
-      // bytes apart, 16 rows = 2048 bytes on
-      mma<BN>(acc, desc(a + kk * 32, 16, 1024), desc(b + kk * 2048, kBBoxBytes, 1024));
-    }
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      mma<BN, kA, kB>(acc, desc(a + kk * kStepA, kLboA, 1024),
+                      desc(b + kk * kStepB, kLboB, 1024));
     wgmma_commit();
     wgmma_wait<1>();  // the previous stage's products are done: free it
     fence_acc(acc);
-    if (k > 0 && lane == 0) mbar_arrive(&empty[(k - 1) % kStages]);
+    if (k > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % kStages]);
   }
   wgmma_wait<0>();
   fence_acc(acc);
+  if (nk > 0 && lane == 0) mbar_arrive(&empty[(it0 + nk - 1) % kStages]);
+}
+
+// The whole mainloop of one tile, A K-major and B MN-major (kernels A and
+// B): the ring initialised, then one run() over K = 64 nk.
+template <int BN, int kStageCount>
+__device__ __forceinline__ void mainloop(const CUtensorMap* map_a, const CUtensorMap* map_b,
+                                         int a_row, const int (&b_col)[BN / kBoxN], int nk,
+                                         unsigned char* base, float (&acc)[BN / 2]) {
+  ring_init<BN, kStageCount>(base);
+  uint32_t it = 0;
+  run<BN, kStageCount, Major::K, Major::MN>(map_a, map_b, a_row, b_col, 0, nk, base, acc, it);
 }
 
 // Hands fn(row, col, v0, v1) every pair of neighbouring accumulators of a

@@ -36,8 +36,8 @@ LAUNCHES = {"fused_qkv_attention": 0, "fused_mlp_block": 0,
             "mahalanobis_logits": 0, "fused_dw_act": 0,
             "tiny_attention": 0, "tiny_attention_bwd": 0}
 
-# rows per partial sum of the backward kernels' column sums (kSumRows in
-# csrc/common.cuh): their workspace holds ceil(rows / COLSUM_ROWS) x N floats
+# rows per partial sum of the backward kernels' column sums off the wgmma
+# route (kSumRows in csrc/common.cuh): ceil(rows / COLSUM_ROWS) x N floats
 COLSUM_ROWS = 256
 # columns of D per partial sum of the Mahalanobis kernel (kTN in
 # csrc/mahalanobis.cu): its workspace holds C x ceil(D / MAHALANOBIS_TILE_N) x M
@@ -56,7 +56,7 @@ _SIGNATURES = {
     # x, w, b, g, qkv, dqkv, partial, dx, dw, db, B, S, D, H, stream
     "orbit_fused_qkv_attention_bwd_f32": [_P] * 10 + [_I] * 4 + [_P],
     "orbit_fused_qkv_attention_bwd_bf16": [_P] * 10 + [_I] * 4 + [_P],
-    # x, g, ln_g, ln_b, w1, b1, w2, stats, xn, hg, h, dxn, partial, dx,
+    # x, g, ln_g, ln_b, w1, b1, w2, stats, xn, hg, hid, dxn, partial, dx,
     # dln_g, dln_b, dw1, db1, dw2, db2, rows, D, hidden, eps, stream
     "orbit_fused_mlp_block_bwd_f32": [_P] * 20 + [_I, _I, _I, _F, _P],
     "orbit_fused_mlp_block_bwd_bf16": [_P] * 20 + [_I, _I, _I, _F, _P],
@@ -72,6 +72,8 @@ _SIGNATURES = {
     # act2, stream
     "orbit_fused_dw_f32": [_P] * 7 + [_I] * 9 + [_P],
     "orbit_fused_dw_bf16": [_P] * 7 + [_I] * 9 + [_P],
+    # a, b, c, M, N, K, a_mn, b_k, bn, stream: the mainloop's layout check
+    "orbit_wgmma_check": [_P] * 3 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()
@@ -183,3 +185,26 @@ def check(code: int, kernel: str) -> None:
     if code:
         msg = library().orbit_cuda_error_string(code).decode()
         raise RuntimeError(f"{kernel}: CUDA error {code} at launch: {msg}")
+
+
+def mainloop_product(a, b, *, a_mn: bool, b_k: bool, bn: int):
+    """C = A . B (f32) on the wgmma mainloop alone (``csrc/wgmma_check.cu``),
+    for checking one operand layout and tile width against ``torch.matmul``:
+    ``a`` is A (M, K), or A^T (K, M) if ``a_mn``; ``b`` is B (K, N), or B^T
+    (N, K) if ``b_k``; both bf16 on one card, bn 128 or 192. No op calls it
+    and it counts no launch."""
+    import torch
+    if (a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 or a.dim() != 2
+            or b.dim() != 2 or a.device.type != "cuda" or b.device != a.device):
+        raise ValueError("mainloop_product takes two 2-D bf16 tensors on one CUDA device")
+    a, b = aligned(a), aligned(b)
+    m, k = (a.shape[1], a.shape[0]) if a_mn else a.shape
+    n = b.shape[0] if b_k else b.shape[1]
+    c = torch.empty((m, n), device=a.device, dtype=torch.float32)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        code = library().orbit_wgmma_check(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
+                                           int(a_mn), int(b_k), bn, stream)
+    check(code, "wgmma_check")
+    return c
+

@@ -25,6 +25,7 @@ import math
 import torch
 
 from orbit_tpu_torch.kernels import build as kbuild
+from orbit_tpu_torch.kernels import plans
 
 KERNEL_DIMS = (64, 128, 384, 768)  # D values the forward kernel is instantiated for
 HIDDEN_CHUNK = 64                  # the FMA kernel walks hidden in these steps
@@ -90,6 +91,34 @@ def mlp_block_stages(x, ln_scale, ln_bias, w1, b1, w2, b2, *, ln_eps: float = 1e
     return xn, h, y
 
 
+def mlp_block_backward_stages(x, ln_scale, ln_bias, w1, b1, w2, g, *,
+                              ln_eps: float = 1e-6):
+    """The plain backward cut where the kernel's bf16 route cuts it into
+    launches: ((xn, hg, dhb, dxn), grads). xn is the LayerNorm launch's
+    output, hg and dhb = cast(dhpre) the hidden launch's (x.dtype), dxn
+    (f32) the grads launch's data product, beside which it writes dW1 and
+    dW2; grads is :func:`mlp_block_backward_reference`'s tuple, bit for
+    bit (the same operations in the same order)."""
+    _check_shapes(x, w1, w2)
+    dt = x.dtype
+    _, xhat, rstd, xn, hpre, erf, hg = _ln_fc1_gelu(x, ln_scale, ln_bias, w1, b1, ln_eps)
+    rows = lambda t: t.reshape(-1, t.shape[-1])
+    gf = g.to(dt).float()
+    dhg = torch.matmul(gf, w2.to(dt).float().T)
+    phi = torch.exp(-0.5 * hpre * hpre) * _INV_SQRT_2PI
+    dhpre = dhg * (0.5 * (1.0 + erf) + hpre * phi)
+    dhb = dhpre.to(dt).float()
+    dxn = torch.matmul(dhb, w1.to(dt).float().T)
+    dxhat = dxn * ln_scale.float()
+    m1 = dxhat.mean(dim=-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    dx = (rstd * (dxhat - m1 - xhat * m2) + gf).to(dt)
+    grads = (dx, rows(dxn * xhat).sum(dim=0), rows(dxn).sum(dim=0),
+             torch.matmul(rows(xn).T, rows(dhb)), rows(dhpre).sum(dim=0),
+             torch.matmul(rows(hg).T, rows(gf)), rows(gf).sum(dim=0))
+    return (xn.to(dt), hg.to(dt), dhb.to(dt), dxn), grads
+
+
 def mlp_block_backward_reference(x, ln_scale, ln_bias, w1, b1, w2, g, *,
                                  ln_eps: float = 1e-6):
     """Plain backward with the TPU kernel's rounding points
@@ -130,7 +159,10 @@ def wgmma_route(dtype, d: int, hidden: int) -> bool:
     """Whether the forward kernel takes its bf16 wgmma route (three
     launches: LayerNorm into an xn workspace, fc1 into an h workspace, fc2)
     rather than the FMA kernel: bf16, with D (fc2's columns) and hidden
-    (fc1's) multiples of WGMMA_TILE_N (``launch_d`` in ``csrc/mlp_block.cu``)."""
+    (fc1's) multiples of WGMMA_TILE_N (``launch_d`` in ``csrc/mlp_block.cu``).
+    The backward takes its wgmma route (five launches, ``launch`` in
+    ``csrc/mlp_block_bwd.cu``) at the same shapes, its FMA products at the
+    others."""
     return dtype == torch.bfloat16 and d % WGMMA_TILE_N == 0 and hidden % WGMMA_TILE_N == 0
 
 
@@ -171,23 +203,26 @@ def _launch_backward(x, ln_scale, ln_bias, w1, b1, w2, g, ln_eps: float):
     d = x.shape[-1]
     hidden = w1.shape[1]
     _check_kernel_args("fused_mlp_block_bwd", x, ln_scale, ln_bias, w1, b1, w2, g)
-    if x.numel() == 0 or g.shape != x.shape or d % 8 or hidden % 8:
+    if x.numel() == 0 or g.shape != x.shape or d % 8 or hidden % 8 or d > 1024:
         raise ValueError(f"fused_mlp_block_bwd kernel needs rows >= 1, D and "
-                         f"hidden multiples of 8 and a cotangent of x's shape; "
-                         f"got {tuple(x.shape)}, hidden {hidden}, {tuple(g.shape)}")
+                         f"hidden multiples of 8, D <= 1024 and a cotangent of x's "
+                         f"shape; got {tuple(x.shape)}, hidden {hidden}, {tuple(g.shape)}")
     x = kbuild.aligned(x)
     g = kbuild.aligned(g.to(x.dtype))
     rows = x.numel() // d
-    gam, bet, b1f = (t.float().contiguous() for t in (ln_scale, ln_bias, b1))
+    gam, bet, b1f = (kbuild.aligned(t.float()) for t in (ln_scale, ln_bias, b1))
     w1c = kbuild.aligned(w1.to(x.dtype))
     w2c = kbuild.aligned(w2.to(x.dtype))
     f32 = dict(device=x.device, dtype=torch.float32)
+    wgmma = wgmma_route(x.dtype, d, hidden)
     work = [torch.empty((rows, 2), **f32),                             # mean, rstd
             torch.empty((rows, d), device=x.device, dtype=x.dtype),   # xn
             torch.empty((rows, hidden), device=x.device, dtype=x.dtype),  # hg
-            torch.empty((rows, hidden), **f32),                       # hpre, then dhpre
+            # cast(dhpre) on the wgmma route; hpre, then dhpre, otherwise
+            torch.empty((rows, hidden), device=x.device,
+                        dtype=x.dtype if wgmma else torch.float32),
             torch.empty((rows, d), **f32),                            # dxn
-            torch.empty((-(-rows // kbuild.COLSUM_ROWS), hidden), **f32)]  # partial sums
+            torch.empty((plans.mlp_bwd_partials(rows, d, hidden, wgmma),), **f32)]
     dx = torch.empty_like(x)
     grads = [torch.empty((d,), **f32), torch.empty((d,), **f32),
              torch.empty((d, hidden), **f32), torch.empty((hidden,), **f32),

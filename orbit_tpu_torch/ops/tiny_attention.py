@@ -36,6 +36,7 @@ import math
 import torch
 
 from orbit_tpu_torch.kernels import build as kbuild
+from orbit_tpu_torch.kernels import plans
 
 HEAD_DIM = 64      # the kernel's head width (every supported ViT)
 MAX_TOKENS = 64    # the kernel's longest sequence (50 tokens at 224 px)
@@ -145,6 +146,32 @@ def qkv_attention_backward_reference(x, kernel, bias, g, num_heads: int):
     return dx, dw, dqkv.sum(dim=0)
 
 
+def qkv_attention_backward_stages(x, kernel, bias, g, num_heads: int):
+    """The plain backward cut where the kernel's bf16 route cuts it into
+    launches: ((qkv, dqkv_t), grads). qkv (x.dtype) is the recompute
+    launch's output, dqkv_t = cast(dqkv) (x.dtype, (B·S, 3D)) the attention
+    launch's, which also writes db's per-row partials; grads is
+    :func:`qkv_attention_backward_reference`'s (dx, dW, db), bit for bit."""
+    _check_shapes(x, kernel, bias, num_heads)
+    dt = x.dtype
+    n, s, d = x.shape
+    qkv = _project(x, kernel, bias)
+    dqkv = _dqkv_f32(qkv, g, num_heads).reshape(n * s, 3 * d)
+    dqkv_t = dqkv.to(dt).float()
+    dx = torch.matmul(dqkv_t, kernel.to(dt).float().T).to(dt).view(n, s, d)
+    dw = torch.matmul(x.float().reshape(n * s, d).T, dqkv_t)
+    return (qkv, dqkv_t.to(dt)), (dx, dw, dqkv.sum(dim=0))
+
+
+def backward_wgmma_route(dtype, d: int) -> bool:
+    """Whether the backward kernel takes its bf16 wgmma route (four
+    launches: the qkv recompute, the attention backward on the tensor
+    cores, dW and dx in one launch, db's second pass; ``launch`` in
+    ``csrc/fused_qkv_attention_bwd.cu``) rather than its FMA stages: bf16
+    with D a multiple of the products' tile width."""
+    return dtype == torch.bfloat16 and d % plans.TILE == 0
+
+
 def _check_kernel_args(name: str, x, d: int, num_heads: int, *others) -> None:
     """Refuse what the kernels cannot take; ``d`` is the attention width
     (x's last dimension, or a third of a raw qkv's)."""
@@ -199,9 +226,12 @@ def _launch_backward(x, kernel, bias, g, num_heads: int):
     w = kbuild.aligned(kernel.to(x.dtype))
     b = bias.to(x.dtype).contiguous()
     f32 = dict(device=x.device, dtype=torch.float32)
+    wgmma = backward_wgmma_route(x.dtype, d)
     qkv = torch.empty((n, s, 3 * d), device=x.device, dtype=x.dtype)
-    dqkv = torch.empty((n, s, 3 * d), **f32)
-    partial = torch.empty((-(-n * s // kbuild.COLSUM_ROWS), 3 * d), **f32)
+    # cast(dqkv) on the wgmma route, the f32 sums otherwise
+    dqkv = torch.empty((n, s, 3 * d), device=x.device,
+                       dtype=x.dtype if wgmma else torch.float32)
+    partial = torch.empty((plans.qkv_bwd_partials(n, s, d, wgmma),), **f32)
     dx = torch.empty_like(x)
     dw = torch.empty((d, 3 * d), **f32)
     db = torch.empty((3 * d,), **f32)
