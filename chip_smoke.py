@@ -14,11 +14,15 @@ Phases, each of which passes or raises:
    attention), kernel B (fused MLP block) and
    their backward kernels against their plain PyTorch versions on the card,
    at the ViT-B/32 and ViT-S/32 shapes (B = 256 and a ragged 13, S = 50), in
-   f32 and bf16; the fused depthwise tail (#8) at EfficientNet-B0's 12
-   stride-1 shapes at 224 px (B = 256 and 13, f32 and bf16, act1 on and
-   off) and the Mahalanobis logits (#7, D = 1280: the path's batched query,
-   M = 1000 against 16 class slots of which 5 are real, then M = 256 and 13
-   against C = 5 and 10 with one padded class); the attention on a raw qkv
+   f32 and bf16; the fused depthwise tail (#8) at EfficientNet-B0's 8 and
+   EfficientNetV2-S's 4 stride-1 tail shapes at 224 px (B = 256 and 13,
+   f32 and bf16, act1 on and off), beside cuDNN's grouped convolution alone,
+   and the Mahalanobis logits (#7, D = 1280: the path's batched query,
+   M = 1000 against 16 class slots of which 5 are real, the train path's
+   M = 256, 44 and 16 against the same slots, then M = 256 and 13 against
+   C = 5 and 10 with one padded class), beside f32 ``torch.bmm``
+   on the real classes' products; #7's and #8's device time from
+   ``torch.profiler``; the attention on a raw qkv
    (#1) and its backward (#2) at the ViT-B/32 and ViT-S/32 shapes (B = 256
    and 13, f32 and bf16), also timed against
    ``F.scaled_dot_product_attention`` and its backward; each timed with
@@ -197,6 +201,11 @@ B0_DW_TAILS = {(112, 32, 3, False): 1, (56, 144, 3, True): 1, (28, 240, 5, True)
                (14, 480, 3, True): 2, (14, 480, 5, True): 1, (14, 672, 5, True): 2,
                (7, 1152, 5, True): 3, (7, 1152, 3, True): 1}
 B0_DW_PER_FORWARD = sum(B0_DW_TAILS.values())  # 12
+# EfficientNetV2-S's stride-1 depthwise tails at 224 px (all in its
+# InvertedResidual stages; orbit_tpu_torch/models/backbones/efficientnet.py
+# V2_S_ARCH): 28 a forward
+V2S_DW_TAILS = {(14, 512, 3, True): 5, (14, 768, 3, True): 1, (14, 960, 3, True): 8,
+                (7, 1536, 3, True): 14}
 # The least time one H100 SXM could take (NVIDIA's data sheet, dense peaks
 # at the full 700 W): 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s f32
 # outside them, 3.35 TB/s of device memory.
@@ -525,7 +534,7 @@ def gemm_yardstick(torch, rows: dict, x, qkv, mlp, cot) -> None:
                                     "hg^T @ g": (hg.t(), g2)}}
         for name, prods in products.items():
             ms = {p: cuda_ms(lambda a=a, b=b: torch.matmul(a, b)) for p, (a, b) in prods.items()}
-            rows[name]["gemm_ms"] = sum(ms.values())
+            rows[name]["yardstick_ms"] = sum(ms.values())
             print(f"  cuBLAS bf16 yardstick (never called by the port), ViT-B/32 B=256, {name}: "
                   + " + ".join(f"{p} {t:.4f}" for p, t in ms.items())
                   + f" = {sum(ms.values()):.4f} ms")
@@ -653,65 +662,119 @@ def _repeat_check(torch, run, ours, where: str) -> None:
         raise AssertionError(f"{where}: a second call gave other bits")
 
 
+def device_ms(torch, fn, match: str, calls: int = 10, tries: int = 3) -> float:
+    """Device time a call of ``fn``'s kernels whose names contain ``match``,
+    from ``torch.profiler`` over ``calls`` warm calls: the kernels alone,
+    without the host's time before a launch, which single calls timed with
+    CUDA events include. A session that records no kernel (one in a few
+    hundred did on an H100) is run again, up to ``tries`` sessions."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(evt.self_device_time_total for evt in prof.key_averages()
+                 if evt.device_type == torch.autograd.DeviceType.CUDA and match in evt.key)
+        if us > 0:
+            return us / 1e3 / calls
+    raise AssertionError(f"the profiler recorded no device time for kernels named {match} "
+                         f"in {tries} sessions")
+
+
 def dw_kernel_phase(torch, card: str) -> dict:
     """Phase 3, #8: the depthwise tail against its plain version at every
-    B0 stride-1 shape; returns its JSON row with the bf16 times summed over
-    the 12 tails of one extractor forward."""
+    stride-1 shape of B0 and V2-S (B 256 and 13, f32 and bf16, both act1);
+    at B 256 the kernel's device time (``device_ms``), a single call's time,
+    the plain version's, cuDNN's grouped convolution alone on a
+    channels-last view (a yardstick the port never calls: the convolution
+    without the affines and SiLUs) and the bound. Returns the JSON row with
+    the bf16 times summed over the 12 tails of one B0 forward."""
+    import torch.nn.functional as F
+
     from orbit_tpu_torch.ops import fused_dw_act
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
-    row = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    row = {"max_abs_err": 0.0, "ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+           "yardstick_ms": 0.0}
     bound_by = set()
-    for (h, c, k, path_act1), count in B0_DW_TAILS.items():
-        for dtype_name in ("float32", "bfloat16"):
-            dt = getattr(torch, dtype_name)
-            for b in (256, 13):
-                x = torch.randn(b, h, h, c, generator=g, device=dev).to(dt)
-                w = 0.3 * torch.randn(k, k, 1, c, generator=g, device=dev)
-                aff = [1 + 0.2 * torch.randn(c, generator=g, device=dev),
-                       0.2 * torch.randn(c, generator=g, device=dev),
-                       1 + 0.2 * torch.randn(c, generator=g, device=dev),
-                       0.2 * torch.randn(c, generator=g, device=dev)]
-                for act1 in (path_act1, not path_act1):
-                    def run(impl, act1=act1):
-                        return fused_dw_act(x, w, *aff, act1=act1, impl=impl)
-                    ours, ref = run(None), run("reference")
-                    torch.cuda.synchronize()
-                    where = f"fused_dw_act {h}x{h}x{c} K{k} act1={act1} {dtype_name} B={b}"
-                    max_abs = compare_grads([ours], [ref], DW_TOL[dtype_name], where)
-                    row["max_abs_err"] = max(row["max_abs_err"], max_abs)
-                    line = f"  {where}: max abs {max_abs:.3e}"
-                    if b == 256 and act1 == path_act1:
-                        _repeat_check(torch, run, ours, where)
-                        ms, plain_ms = cuda_ms(lambda: run(None)), cuda_ms(lambda: run("reference"))
-                        bound_ms, by = bound_dw(b, h, c, k, dtype_name)
-                        line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                                 f"{bound_ms:.4f} ms ({by}), x{count} a forward, same bits "
-                                 f"on a repeat")
-                        if dtype_name == "bfloat16":
-                            row["ms"] += count * ms
-                            row["plain_ms"] += count * plain_ms
-                            row["bound_ms"] += count * bound_ms
-                            bound_by.add(by)
-                    print(line)
-                del x
+    sums = {}
+    for net, tails in (("B0", B0_DW_TAILS), ("V2-S", V2S_DW_TAILS)):
+        for (h, c, k, path_act1), count in tails.items():
+            for dtype_name in ("float32", "bfloat16"):
+                dt = getattr(torch, dtype_name)
+                for b in (256, 13):
+                    x = torch.randn(b, h, h, c, generator=g, device=dev).to(dt)
+                    w = 0.3 * torch.randn(k, k, 1, c, generator=g, device=dev)
+                    aff = [1 + 0.2 * torch.randn(c, generator=g, device=dev),
+                           0.2 * torch.randn(c, generator=g, device=dev),
+                           1 + 0.2 * torch.randn(c, generator=g, device=dev),
+                           0.2 * torch.randn(c, generator=g, device=dev)]
+                    for act1 in (path_act1, not path_act1):
+                        def run(impl, act1=act1):
+                            return fused_dw_act(x, w, *aff, act1=act1, impl=impl)
+                        ours, ref = run(None), run("reference")
+                        torch.cuda.synchronize()
+                        where = (f"fused_dw_act {net} {h}x{h}x{c} K{k} act1={act1} "
+                                 f"{dtype_name} B={b}")
+                        max_abs = compare_grads([ours], [ref], DW_TOL[dtype_name], where)
+                        row["max_abs_err"] = max(row["max_abs_err"], max_abs)
+                        line = (f"  {where}: max abs {max_abs:.3e} "
+                                f"({max_abs / float(ref.float().abs().max()):.2e} of the largest)")
+                        if b == 256 and act1 == path_act1:
+                            _repeat_check(torch, run, ours, where)
+                            ms = device_ms(torch, lambda: run(None), "fused_dw")
+                            call_ms = cuda_ms(lambda: run(None))
+                            plain_ms = cuda_ms(lambda: run("reference"))
+                            xc = x.permute(0, 3, 1, 2)             # NCHW, channels last
+                            wc = w.to(dt).permute(3, 2, 0, 1).contiguous()
+                            conv_ms = cuda_ms(lambda: F.conv2d(xc, wc, padding=k // 2,
+                                                               groups=c))
+                            bound_ms, by = bound_dw(b, h, c, k, dtype_name)
+                            line += (f"; kernel {ms:.4f} ms on the device ({100 * bound_ms / ms:.1f}%"
+                                     f" of the bound), {call_ms:.4f} ms a call, plain "
+                                     f"{plain_ms:.4f} ms, cuDNN conv alone {conv_ms:.4f} ms, "
+                                     f"bound {bound_ms:.4f} ms ({by}), x{count} a forward, same "
+                                     f"bits on a repeat ({card})")
+                            key = (net, dtype_name)
+                            total = sums.setdefault(key, [0.0, 0.0, 0.0])
+                            total[0] += count * ms
+                            total[1] += count * bound_ms
+                            total[2] += count * conv_ms
+                            if net == "B0" and dtype_name == "bfloat16":
+                                for name, v in (("ms", ms), ("call_ms", call_ms),
+                                                ("plain_ms", plain_ms), ("bound_ms", bound_ms),
+                                                ("yardstick_ms", conv_ms)):
+                                    row[name] += count * v
+                                bound_by.add(by)
+                        print(line)
+                    del x
     row["bound_by"] = "bytes" if bound_by == {"bytes"} else "operations"
-    print(f"  fused_dw_act, the 12 tails of one B0 forward at B=256 bf16 ({card}): kernel "
-          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']})")
+    for (net, dtype_name), (ms, bound_ms, conv_ms) in sums.items():
+        print(f"  fused_dw_act, the tails of one {net} forward at B=256 {dtype_name} ({card}): "
+              f"kernel {ms:.4f} ms on the device, bound {bound_ms:.4f} ms "
+              f"({100 * bound_ms / ms:.1f}%), cuDNN conv alone {conv_ms:.4f} ms")
     return row
 
 
 # #7's shapes as (C, real classes, [M, ...]); the first is the SimpleCNAPs
 # path's: each task's 5 videos x 200 frames in one batched predict call
 # against the episode's 16 class slots (pad_episode's MAX_WAY), 5 of them
-# real. Its row in the kernels line is taken there.
-MAHALANOBIS_SHAPES = ((16, 5, (1000,)), (5, 4, (256, 13)), (10, 9, (256, 13)))
+# real; its row in the kernels line is taken there. Then the FiLM train
+# path's target batches (256 and 44 of 300 clips, 16 in a LITE subset)
+# against the same slots.
+MAHALANOBIS_SHAPES = ((16, 5, (1000, 256, 44, 16)), (5, 4, (256, 13)), (10, 9, (256, 13)))
 
 
 def mahalanobis_kernel_phase(torch, card: str) -> dict:
-    """Phase 3, #7: the Mahalanobis logits against their plain version."""
+    """Phase 3, #7: the Mahalanobis logits against their plain version; at
+    M != 13 the kernels' device time, a single call's time, the plain
+    version's, true-f32 ``torch.bmm`` of the real classes' diffs and
+    precisions (the product alone: a yardstick the port never calls) and
+    the bound."""
     from orbit_tpu_torch.ops import mahalanobis_logits
 
     dev = torch.device("cuda")
@@ -737,17 +800,38 @@ def mahalanobis_kernel_phase(torch, card: str) -> dict:
                 raise AssertionError(f"{where}: a padded class is not -1e30")
             max_abs = compare_grads([ours[:, :real]], [ref[:, :real]], MAHALANOBIS_TOL, where)
             row["max_abs_err"] = max(row["max_abs_err"], max_abs)
-            line = f"  {where}: max abs {max_abs:.3e}"
+            line = (f"  {where}: max abs {max_abs:.3e} "
+                    f"({max_abs / float(ref[:, :real].abs().max()):.2e} of the largest)")
             if m != 13:
                 _repeat_check(torch, run, ours, where)
-                ms, plain_ms = cuda_ms(lambda: run(None)), cuda_ms(lambda: run("reference"))
+                ms = device_ms(torch, lambda: run(None), "mahalanobis")
+                call_ms, plain_ms = cuda_ms(lambda: run(None)), cuda_ms(lambda: run("reference"))
+                diffs = (f[None] - means[:real, None]).contiguous()
+                bmm_ms = cuda_ms(lambda: torch.bmm(diffs, prec[:real]))
+                del diffs
                 bound_ms, by = bound_mahalanobis(m, d, c, real)
-                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
-                         f"ms ({by}), same bits on a repeat ({card})")
+                line += (f"; kernel {ms:.4f} ms on the device ({100 * bound_ms / ms:.1f}% of "
+                         f"the bound), {call_ms:.4f} ms a call, plain {plain_ms:.4f} ms, f32 "
+                         f"bmm alone {bmm_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), same "
+                         f"bits on a repeat ({card})")
                 if "ms" not in row:
-                    row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+                    row.update(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=by, yardstick_ms=bmm_ms)
             print(line)
     return row
+
+
+def kernels_only(torch, root: Path) -> None:
+    """``--kernels-only``: phase 3's checks and times of #8 and #7 with the
+    ``orbit_tpu_torch`` package under ``root``."""
+    sys.path.insert(0, str(root))
+    import orbit_tpu_torch
+    from orbit_tpu_torch.models.precision import configure_matmul_precision
+    configure_matmul_precision()
+    card = card_line()
+    print(f"orbit_tpu_torch from {Path(orbit_tpu_torch.__file__).parent} ({card})")
+    dw_kernel_phase(torch, card)
+    mahalanobis_kernel_phase(torch, card)
 
 
 def bound_attention(backward: bool, b: int, s: int, d: int, dtype_name: str):
@@ -1520,6 +1604,9 @@ def main(argv=None) -> int:
     parser.add_argument("--breakdown-only", type=Path, metavar="DIR",
                         help="print only the per-launch breakdown of #4 and #6 with the "
                              "orbit_tpu_torch package under DIR")
+    parser.add_argument("--kernels-only", type=Path, metavar="DIR",
+                        help="print only phase 3's checks and times of #8 and #7 with the "
+                             "orbit_tpu_torch package under DIR")
     opts = parser.parse_args(argv)
     SEED = opts.seed
     if not (REPO / "orbit_tpu_torch" / "csrc").is_dir():
@@ -1533,6 +1620,9 @@ def main(argv=None) -> int:
         return 2
     if opts.breakdown_only:
         breakdown_only(torch, opts.breakdown_only.resolve())
+        return 0
+    if opts.kernels_only:
+        kernels_only(torch, opts.kernels_only.resolve())
         return 0
     sys.path.insert(0, str(REPO))
 
@@ -1611,7 +1701,8 @@ def main(argv=None) -> int:
                         "bound_ms": rows[name]["bound_ms"],
                         "bound_by": rows[name]["bound_by"],
                         "library_ms": rows[name].get("library_ms"),
-                        "gemm_ms": rows[name].get("gemm_ms"),
+                        "call_ms": rows[name].get("call_ms"),
+                        "yardstick_ms": rows[name].get("yardstick_ms"),
                         "launches_by_path": {path: launches[name]
                                              for path, launches in paths.items()}})
     print(json.dumps({"kernels": kernels}))

@@ -39,9 +39,6 @@ LAUNCHES = {"fused_qkv_attention": 0, "fused_mlp_block": 0,
 # rows per partial sum of the backward kernels' column sums off the wgmma
 # route (kSumRows in csrc/common.cuh): ceil(rows / COLSUM_ROWS) x N floats
 COLSUM_ROWS = 256
-# columns of D per partial sum of the Mahalanobis kernel (kTN in
-# csrc/mahalanobis.cu): its workspace holds C x ceil(D / MAHALANOBIS_TILE_N) x M
-MAHALANOBIS_TILE_N = 64
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -66,8 +63,8 @@ _SIGNATURES = {
     # qkv, g, dqkv, B, S, D, H, stream
     "orbit_tiny_attention_bwd_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "orbit_tiny_attention_bwd_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # f, mu, P, class_mask, partial, out, M, D, C, scale, stream
-    "orbit_mahalanobis_logits": [_P] * 6 + [_I, _I, _I, _F, _P],
+    # f, mu, P, class_mask, partial, out, M, D, C, splits, scale, stream
+    "orbit_mahalanobis_logits": [_P] * 6 + [_I, _I, _I, _I, _F, _P],
     # x, taps, a1, b1, a2, b2, out, N, H, W, C, K, pad_top, pad_left, act1,
     # act2, stream
     "orbit_fused_dw_f32": [_P] * 7 + [_I] * 9 + [_P],

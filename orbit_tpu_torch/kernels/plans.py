@@ -1,7 +1,10 @@
-"""The bf16 backward routes' plans, mirrored from the CUDA sources so that
-the tests can hold them against brute force on the CPU: which block owns
-which output tile of ``csrc/grads.cuh``'s launch, which rows each partial
-column sum covers, and the order in which the second pass adds them.
+"""Kernel plans mirrored from the CUDA sources so that the tests can hold
+them against brute force on the CPU: which block owns which output tile
+of ``csrc/grads.cuh``'s launch, which rows each partial column sum covers,
+and the order in which the second pass adds them (the bf16 backward
+routes); the geometry, staging and schedule of the fused depthwise tail
+(#8, ``csrc/depthwise.cu``); the tiles and partial sums of the Mahalanobis
+logits (#7, ``csrc/mahalanobis.cu``).
 
 The backward kernels #4 and #6 never add into a shared sum: every partial
 sum has one writer (a block), covers a fixed run of rows, and a second pass
@@ -10,7 +13,11 @@ bits.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from orbit_tpu_torch.kernels.build import COLSUM_ROWS
 
@@ -71,3 +78,259 @@ def qkv_bwd_partials(b: int, s: int, d: int, wgmma: bool) -> int:
     sequence, one attention block's S tokens) on the wgmma route, one a
     256-row chunk otherwise."""
     return (b if wgmma else -(-b * s // COLSUM_ROWS)) * 3 * d
+
+
+# ---- #8, the fused depthwise tail (csrc/depthwise.cu) ----
+DW_OUT = 7                 # kOut: outputs a thread computes along its row
+DW_MAX_THREADS = 256       # kMaxThreads
+DW_STRIP_MAX = 56          # kStripMax: widest strip of output columns
+DW_GROUP_SMEM = 40 * 1024  # kGroupSmem: rings of a block that groups images
+SMEM_LIMIT = 232448        # shared memory one H100 block can use (227 KB)
+
+
+class DwPlan(NamedTuple):
+    """``csrc/depthwise.cu``'s ``Plan``: groups * strips * slices blocks
+    (the slice fastest), ``threads`` a block, ``smem`` bytes of its two
+    rings."""
+    ch: int       # channels a thread computes
+    pix: int      # ring elements a column
+    rows: int     # output rows a thread computes a phase
+    slice: int    # channels a block
+    strip: int    # output columns a block
+    runs: int     # runs of DW_OUT outputs covering a strip row
+    images: int   # images a block
+    strips: int
+    groups: int
+    slices: int
+    threads: int
+    smem: int
+
+
+def dw_depth(rows: int) -> int:
+    """``depth_of``: raw input rows in flight ahead of the compute."""
+    return rows + 2
+
+
+def dw_ring_rows(k: int, rows: int) -> int:
+    """Activated rows a block keeps: a phase's ``rows + K - 1`` and the
+    ``rows`` it activates for the next phase."""
+    return k + 2 * rows - 1
+
+
+def dw_ring_bytes(runs: int, pix: int, rows: int, k: int, itemsize: int) -> int:
+    """One image's rings: the activated f32 rows and the raw rows in the
+    storage type, ``runs * DW_OUT + K - 1`` columns of ``pix``."""
+    return (runs * DW_OUT + k - 1) * pix * (dw_ring_rows(k, rows) * 4 + dw_depth(rows) * itemsize)
+
+
+def dw_plan(n: int, w: int, c: int, k: int, itemsize: int) -> DwPlan:
+    """``launch_k`` and ``make_plan``: the widest channel slice that
+    divides C, strips of at most DW_STRIP_MAX columns; a 32-element ring
+    column, one channel and two output rows a thread for slices up to 32
+    channels; else a column of the slice's width, and at K = 5 one channel a thread
+    where an image's threads stay within DW_MAX_THREADS (else two) and two
+    output rows, at K = 3 two channels and one row; images grouped
+    up to DW_MAX_THREADS threads and DW_GROUP_SMEM bytes of rings (at least
+    one)."""
+    slice_ = next(s for s in (64, 48, 32, 16, 8) if c % s == 0)
+    strips = -(-w // DW_STRIP_MAX)
+    strip = -(-w // strips)
+    runs = -(-strip // DW_OUT)
+    pix = max(slice_, 32)
+    ch = 1 if slice_ <= 32 or (k == 5 and slice_ * runs <= DW_MAX_THREADS) else 2
+    rows = 2 if slice_ <= 32 or k == 5 else 1
+    image_threads = slice_ // ch * runs
+    image_bytes = dw_ring_bytes(runs, pix, rows, k, itemsize)
+    images = max(1, min(n, DW_MAX_THREADS // image_threads, DW_GROUP_SMEM // image_bytes))
+    return DwPlan(ch, pix, rows, slice_, strip, runs, images, strips, -(-n // images),
+                  c // slice_, image_threads * images, image_bytes * images)
+
+
+def dw_max_smem(plan: DwPlan, k: int, itemsize: int) -> int:
+    """The dynamic shared memory ``launch_ch`` allows the plan's variant:
+    one image of 8 runs, or a group of images."""
+    return max(dw_ring_bytes(DW_STRIP_MAX // DW_OUT, plan.pix, plan.rows, k, itemsize),
+               DW_GROUP_SMEM)
+
+
+def dw_blocks(plan: DwPlan):
+    """(n0, x0, c0) of every block, in blockIdx.x order."""
+    return [((b // plan.strips) * plan.images, (b % plan.strips) * plan.strip, s * plan.slice)
+            for b in range(plan.groups * plan.strips) for s in range(plan.slices)]
+
+
+def dw_thread_outputs(plan: DwPlan, tid: int):
+    """Block-relative (image, first column, first channel, columns) of the
+    outputs thread ``tid`` computes in every row: ``plan.ch`` channels of up
+    to DW_OUT neighbouring columns of the strip."""
+    lanes = plan.slice // plan.ch
+    lane, run, g = tid % lanes, (tid // lanes) % plan.runs, tid // (lanes * plan.runs)
+    cols = [run * DW_OUT + o for o in range(DW_OUT) if run * DW_OUT + o < plan.strip]
+    return g, cols, plan.ch * lane
+
+
+def dw_ring_positions(plan: DwPlan, n: int, h: int, w: int, k: int, n0: int, x0: int):
+    """The ring positions a block walks: for every input row t (0 .. H+K-2,
+    input row t - pad_top), image slot g and ring column, the image, input
+    row and column it holds, and whether it is inside the image (copied and
+    activated) or zero after the activation. Arrays of shape
+    (H + K - 1, images, ring width)."""
+    pad_top, pad_left = (k - 1) // 2, (k - 1) // 2
+    ring_w = plan.runs * DW_OUT + k - 1
+    t, g, col = np.meshgrid(np.arange(h + k - 1), np.arange(plan.images), np.arange(ring_w),
+                            indexing="ij")
+    img, iy, ix = n0 + g, t - pad_top, x0 - pad_left + col
+    inside = (img < n) & (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+    return img, iy, ix, inside
+
+
+def dw_emulate(x, taps, a1, b1, a2, b2, *, act1: bool, act2: bool) -> torch.Tensor:
+    """The kernel's schedule on the CPU: per block, its ring of activated
+    rows (the pre-affine and SiLU in f32, rounded to x's dtype, zero outside
+    the image after the activation); phase by phase, ``plan.rows`` output
+    rows from the ring's rows, each output's K*K products added in (row,
+    column) order in f32, while the next phase's rows take the slots of
+    rows no later output reads; the post-affine and SiLU in f32 and one
+    cast. x (N, H, W, C), taps (K, K, 1, C), stride 1, TF-SAME."""
+    dt = x.dtype
+    n, h, w, c = x.shape
+    k = taps.shape[0]
+    plan = dw_plan(n, w, c, k, x.element_size())
+    tw = taps.to(dt).float().reshape(k, k, c)
+    out = torch.empty_like(x)
+    ring_w = plan.runs * DW_OUT + k - 1
+    n_ring, n_in = dw_ring_rows(k, plan.rows), plan.rows + k - 1
+    for n0, x0, c0 in dw_blocks(plan):
+        cs = slice(c0, c0 + plan.slice)
+        img, iy, ix, inside = dw_ring_positions(plan, n, h, w, k, n0, x0)
+        ring, held = [None] * n_ring, [None] * n_ring
+
+        def activate(t):
+            vals = torch.zeros(plan.images, ring_w, plan.slice)
+            if t < len(inside) and inside[t].any():
+                m = inside[t]
+                raw = x[img[t][m], iy[t][m], ix[t][m], cs].float()
+                a = raw * a1[cs].float() + b1[cs].float()
+                vals[torch.from_numpy(m)] = (F.silu(a) if act1 else a).to(dt).float()
+            ring[t % n_ring], held[t % n_ring] = vals, t
+
+        for t in range(n_in):
+            activate(t)
+        for r in range(0, h, plan.rows):
+            rows = [ring[(r + i) % n_ring] for i in range(n_in)]
+            assert [held[(r + i) % n_ring] for i in range(n_in)] == list(range(r, r + n_in))
+            for t in range(r + n_in, r + n_in + plan.rows):
+                activate(t)  # the next phase's rows, into slots no later output reads
+            for rr in range(min(plan.rows, h - r)):
+                acc = torch.zeros(plan.images, plan.runs * DW_OUT, plan.slice)
+                for di in range(k):
+                    for dj in range(k):
+                        acc = acc + rows[rr + di][:, dj:dj + plan.runs * DW_OUT] * tw[di, dj, cs]
+                y = acc * a2[cs].float() + b2[cs].float()
+                y = (F.silu(y) if act2 else y).to(dt)
+                cols, imgs = min(plan.strip, w - x0), min(plan.images, n - n0)
+                out[n0:n0 + imgs, r + rr, x0:x0 + cols, cs] = y[:imgs, :cols]
+    return out
+
+
+# ---- #7, the Mahalanobis logits (csrc/mahalanobis.cu) ----
+MAHA_TILE_M = 128   # kTM
+MAHA_TILE_N = 128   # kTN
+MAHA_TILE_K = 16    # kTK
+MAHA_STAGES = 4     # kStages
+MAHA_SMEM = 4 * (2 * MAHA_TILE_K * (MAHA_TILE_M + 4) + MAHA_STAGES * MAHA_TILE_M * MAHA_TILE_K
+                 + MAHA_STAGES * MAHA_TILE_K * MAHA_TILE_N)
+# blocks a class aims at: many short blocks fill the last wave. On an H100
+# at M = 1000 (16 slots, 5 real), 80 (1.5 waves) read 48.7% of the bound,
+# 160 54.8%, 240 56.5%, 400 57.6% (chip_smoke.py's bound).
+MAHA_CLASS_BLOCKS = 400
+MAHA_SPLIT_STAGES = 8    # the fewest 16-deep stages a split of D keeps
+
+
+def maha_splits(m: int, d: int) -> int:
+    """The ranges D is cut into, each a block and a partial sum of its own:
+    enough that a class has about MAHA_CLASS_BLOCKS blocks (the real
+    classes are known only on the device), at least MAHA_SPLIT_STAGES
+    stages each. 5 at the SimpleCNAPs query's M = 1000, D = 1280 (8 x 10
+    tiles), 10 at the train path's target batches of 256, 44 and 16."""
+    tiles = -(-m // MAHA_TILE_M) * -(-d // MAHA_TILE_N)
+    return max(1, min(-(-MAHA_CLASS_BLOCKS // tiles), -(-d // MAHA_TILE_K) // MAHA_SPLIT_STAGES))
+
+
+def maha_split_stages(m: int, d: int):
+    """The 16-deep stages of D each split walks, in split order."""
+    n_stages, splits = -(-d // MAHA_TILE_K), maha_splits(m, d)
+    per = -(-n_stages // splits)
+    return [range(s * per, min(n_stages, (s + 1) * per)) for s in range(splits)]
+
+
+def maha_grid(m: int, d: int, c: int):
+    """(partial sums a row: N tiles x splits, M tiles, class slots): the
+    partial kernel's grid."""
+    return -(-d // MAHA_TILE_N) * maha_splits(m, d), -(-m // MAHA_TILE_M), c
+
+
+def maha_thread_tile(tid: int):
+    """Tile-relative (rows, columns) of thread ``tid``'s 8 x 8 outputs, the
+    columns in the order its row sums add them; a warp holds 4 row groups
+    by 8 column groups."""
+    warp, lane = tid // 32, tid % 32
+    ty, tx = (warp // 2) * 4 + lane // 8, (warp % 2) * 8 + lane % 8
+    rows = [ty * 4 + i for i in range(4)] + [64 + ty * 4 + i for i in range(4)]
+    cols = [tx * 4 + j for j in range(4)] + [64 + tx * 4 + j for j in range(4)]
+    return rows, cols
+
+
+def maha_row_groups(d: int):
+    """The columns of one row's dot with diff, as a block adds them: per N
+    tile, per thread of the row (the 16 column groups, added in order), its
+    columns in order (columns past D skipped). The second pass adds the
+    blocks' partial sums tile by tile, each tile's splits of D in order."""
+    return [[[e for e in (t * MAHA_TILE_N + col
+                          for col in maha_thread_tile((tx // 8) * 32 + tx % 8)[1]) if e < d]
+             for tx in range(16)] for t in range(-(-d // MAHA_TILE_N))]
+
+
+def maha_row_order(d: int):
+    """``maha_row_groups`` flattened: the order of a row's D columns."""
+    return [e for tile in maha_row_groups(d) for cols in tile for e in cols]
+
+
+def maha_blocks(m: int, d: int, class_mask):
+    """(class, m0, e0, stages of D) of every block that computes (a real
+    class's), in launch order; the padded classes' blocks leave at once."""
+    n_parts, m_tiles, c = maha_grid(m, d, len(class_mask))
+    splits = maha_split_stages(m, d)
+    return [(k, mt * MAHA_TILE_M, (p // len(splits)) * MAHA_TILE_N, splits[p % len(splits)])
+            for k in range(c) if class_mask[k] > 0 for mt in range(m_tiles)
+            for p in range(n_parts)]
+
+
+def maha_emulate(features, means, precisions, class_mask, logit_scale: float = 1.0):
+    """The kernel's sums on the CPU: per block, its split of D's share of
+    half = diff @ P_c in f32 (a matrix product, in another order than the
+    kernel's), each row's dot with diff over the block's N tile as the
+    kernel adds it (per thread its 8 columns, the 16 threads of a row in
+    order), then the second pass over the blocks' partial sums in order;
+    -1e30 on padded classes."""
+    f = features.float()
+    m, d = f.shape
+    out = torch.full((m, means.shape[0]), -1e30)
+    for k in range(means.shape[0]):
+        if class_mask[k] <= 0:
+            continue
+        diff = f - means[k].float()
+        total = torch.zeros(m)
+        for tile in maha_row_groups(d):
+            for stages in maha_split_stages(m, d):
+                ks = slice(stages.start * MAHA_TILE_K, stages.stop * MAHA_TILE_K)
+                half = diff[:, ks] @ precisions[k].float()[ks]
+                part = torch.zeros(m)
+                for cols in tile:
+                    s = torch.zeros(m)
+                    for e in cols:
+                        s = s + half[:, e] * diff[:, e]
+                    part = part + s
+                total = total + part
+        out[:, k] = -logit_scale * total
+    return out

@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 
 from orbit_tpu_torch.kernels import build as kbuild
+from orbit_tpu_torch.kernels import plans
 
 NEG_INF = -1e30
 
@@ -68,16 +69,16 @@ def _launch(features, means, precisions, class_mask, logit_scale: float) -> torc
     # 16-byte aligned rows for the kernel's vector loads
     f, mu, p, mask = (kbuild.aligned(t.float(), 16) for t in
                       (features, means, precisions, class_mask))
-    n_tiles = -(-d // kbuild.MAHALANOBIS_TILE_N)
-    partial = torch.empty((c, n_tiles, m), device=f.device, dtype=torch.float32)
+    n_parts, _, _ = plans.maha_grid(m, d, c)
+    partial = torch.empty((c, n_parts, m), device=f.device, dtype=torch.float32)
     out = torch.empty((m, c), device=f.device, dtype=torch.float32)
     lib = kbuild.library()
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream(f.device).cuda_stream
         code = lib.orbit_mahalanobis_logits(f.data_ptr(), mu.data_ptr(), p.data_ptr(),
                                             mask.data_ptr(), partial.data_ptr(),
-                                            out.data_ptr(), m, d, c, float(logit_scale),
-                                            stream)
+                                            out.data_ptr(), m, d, c, plans.maha_splits(m, d),
+                                            float(logit_scale), stream)
     kbuild.check(code, "mahalanobis_logits")
     kbuild.LAUNCHES["mahalanobis_logits"] += 1
     return out

@@ -171,7 +171,7 @@ def test_effnet_b0_forward_matches_flax(jax_side):
 
 
 def test_effnet_v2_s_forward_matches_flax():
-    """V2-S (ConvBnAct, EdgeResidual and 24 fused InvertedResidual tails)
+    """V2-S (ConvBnAct, EdgeResidual and 28 fused InvertedResidual tails)
     with the port's own seeded weights, calibrated, carried to Flax by the
     inverse of the renaming; the converter maps them back unchanged."""
     from orbit_tpu.models.backbones.efficientnet import create_efficientnet

@@ -522,11 +522,14 @@ def test_autograd_runs_the_backward_kernels(cuda_device):
     assert all(t.grad is not None for t in (x, w, b, *m))
 
 
-# the depthwise tail at EfficientNet-B0's 12 stride-1 shapes at 224 px
-# (H, C, K, act1), at a ragged batch of 13 and a small one
+# the depthwise tail at EfficientNet-B0's 8 and EfficientNetV2-S's 4
+# stride-1 tail shapes at 224 px (H, C, K, act1), at a ragged batch of 13,
+# and a small one
 B0_DW_SHAPES = [(112, 32, 3, False), (56, 144, 3, True), (28, 240, 5, True),
                 (14, 480, 3, True), (14, 480, 5, True), (14, 672, 5, True),
-                (7, 1152, 5, True), (7, 1152, 3, True), (9, 16, 5, True)]
+                (7, 1152, 5, True), (7, 1152, 3, True), (14, 512, 3, True),
+                (14, 768, 3, True), (14, 960, 3, True), (7, 1536, 3, True),
+                (9, 16, 5, True)]
 
 
 @pytest.mark.cuda
