@@ -21,11 +21,12 @@ Phases, each of which passes or raises:
    M = 1000 against 16 class slots of which 5 are real, the train path's
    M = 256, 44 and 16 against the same slots, then M = 256 and 13 against
    C = 5 and 10 with one padded class), beside f32 ``torch.bmm``
-   on the real classes' products; #7's and #8's device time from
-   ``torch.profiler``; the attention on a raw qkv
+   on the real classes' products; the attention on a raw qkv
    (#1) and its backward (#2) at the ViT-B/32 and ViT-S/32 shapes (B = 256
    and 13, f32 and bf16), also timed against
-   ``F.scaled_dot_product_attention`` and its backward; each timed with
+   ``F.scaled_dot_product_attention`` and its backward; #1's, #2's,
+   #7's, #8's and SDPA's device time from ``torch.profiler``; each timed
+   with
    CUDA events at B = 256 and at #7's path shape, beside its bound, and
    repeated to show that a second call gives the same bits; A, B, #4 and
    #6 also back to back, beside cuBLAS bf16 on their products alone (x @
@@ -102,9 +103,15 @@ checkout, it exits non-zero and prints no result.
 
     python3 chip_smoke.py --breakdown-only DIR
 
-prints only the per-launch breakdown of #4 and #6 (ViT-B/32, B = 256, bf16)
-with the ``orbit_tpu_torch`` package found in DIR (a checkout of another
-commit, to set the kernels of two commits side by side in one call).
+prints only kernel A's device time and the per-launch breakdown of #4
+(ViT-B/32, B = 256, bf16 and f32) and of #6 (bf16) with the
+``orbit_tpu_torch`` package found in DIR (a checkout of another commit, to
+set the kernels of two commits side by side in one call).
+
+    python3 chip_smoke.py --kernels-only DIR
+
+prints only phase 3's lines of #1, #2, #8 and #7, and kernel A's and #4's
+device time (bf16 and f32), with the package found in DIR.
 """
 from __future__ import annotations
 
@@ -213,13 +220,14 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 
 
-# the kernels of the bf16 wgmma routes of A, B, #4 and #6 (csrc/wgmma.cuh)
-# and the mainloop's layout check, whose registers and spills phase 2
-# prints from nvcc's -Xptxas -v output
+# the kernels of the bf16 wgmma routes of A, B, #4 and #6 (csrc/wgmma.cuh),
+# the mainloop's layout check and the bf16 kernels of #1 and #2, whose
+# registers and spills phase 2 prints from nvcc's -Xptxas -v output
 WGMMA_KERNELS = ("fused_qkv_attention_wgmma_kernel", "fused_mlp_block_layernorm_kernel",
                  "fused_mlp_block_gemm_kernel", "qkv_recompute_kernel",
                  "attention_bwd_mma_kernel", "mlp_bwd_hidden_kernel", "grads_kernel",
-                 "layer_norm_kernel", "layer_norm_backward_kernel", "wgmma_check_kernel")
+                 "layer_norm_kernel", "layer_norm_backward_kernel", "wgmma_check_kernel",
+                 "tiny_attention_tile_kernel", "tiny_attention_bwd_mma_kernel")
 
 
 def print_registers(log: Path, names) -> None:
@@ -230,7 +238,8 @@ def print_registers(log: Path, names) -> None:
     seen = set()
     for i, line in enumerate(lines):
         m = re.search(r"Compiling entry function '(\S+)'", line)
-        name = next((n for n in names if m and n in m.group(1)), None)
+        # the longest name: attention_bwd_mma_kernel is inside tiny_attention_bwd_mma_kernel
+        name = max((n for n in names if m and n in m.group(1)), key=len, default=None)
         if name is None or m.group(1) in seen:
             continue
         seen.add(m.group(1))
@@ -540,7 +549,8 @@ def gemm_yardstick(torch, rows: dict, x, qkv, mlp, cot) -> None:
                   + f" = {sum(ms.values()):.4f} ms")
 
 
-def launch_breakdown(torch, fn, label: str, card: str, calls: int = 5) -> None:
+def launch_breakdown(torch, fn, label: str, card: str, calls: int = 5,
+                     dtype: str = "bf16") -> None:
     """``calls`` warm calls of ``fn`` under ``torch.profiler``: each
     launch's device time per call and its share of the call's device
     time, the launches in the order of their time."""
@@ -561,34 +571,34 @@ def launch_breakdown(torch, fn, label: str, card: str, calls: int = 5) -> None:
     if total <= 0:
         print(f"  {label} by launch ({card}): the profiler recorded no device time (not measured)")
         return
-    print(f"  {label} by launch, ViT-B/32 B=256 bf16, device time a call {total:.4f} ms ({card}):")
+    print(f"  {label} by launch, ViT-B/32 B=256 {dtype}, device time a call {total:.4f} ms "
+          f"({card}):")
     for key, ms in sorted(times.items(), key=lambda kv: -kv[1]):
         print(f"    {ms:.4f} ms ({100 * ms / total:.1f}%)  {key[:100]}")
 
 
 def breakdown_only(torch, root: Path) -> None:
-    """``--breakdown-only``: phase 3's per-launch breakdown of #4 and #6
-    with the ``orbit_tpu_torch`` package under ``root``."""
+    """``--breakdown-only``: kernel A's device time and phase 3's per-launch
+    breakdown of #4 and #6 with the ``orbit_tpu_torch`` package under
+    ``root``."""
     sys.path.insert(0, str(root))
     import orbit_tpu_torch
     from orbit_tpu_torch.models.precision import configure_matmul_precision
-    from orbit_tpu_torch.ops import fused_mlp_block_backward, fused_qkv_attention_backward
+    from orbit_tpu_torch.ops import fused_mlp_block_backward
     configure_matmul_precision()
     card = card_line()
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
-    d, heads = 768, 12
+    d = 768
 
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device=dev) * scale
     x, cot = randn(256, 50, d).bfloat16(), randn(256, 50, d).bfloat16()
-    qkv = (randn(d, 3 * d, scale=d ** -0.5).bfloat16(), randn(3 * d, scale=0.1).bfloat16())
     mlp = (1 + randn(d, scale=0.1), randn(d, scale=0.1),
            randn(d, 4 * d, scale=d ** -0.5).bfloat16(), randn(4 * d, scale=0.02),
            randn(4 * d, d, scale=(4 * d) ** -0.5).bfloat16())
     print(f"orbit_tpu_torch from {Path(orbit_tpu_torch.__file__).parent} ({card})")
-    launch_breakdown(torch, lambda: fused_qkv_attention_backward(x, *qkv, cot, heads),
-                     "fused_qkv_attention_bwd", card)
+    vit_attention_device_time(torch, card)
     launch_breakdown(torch, lambda: fused_mlp_block_backward(x, *mlp, cot, ln_eps=1e-6),
                      "fused_mlp_block_bwd", card)
 
@@ -662,16 +672,18 @@ def _repeat_check(torch, run, ours, where: str) -> None:
         raise AssertionError(f"{where}: a second call gave other bits")
 
 
-def device_ms(torch, fn, match: str, calls: int = 10, tries: int = 3) -> float:
+def device_ms(torch, fn, match: str, calls: int = 10, sessions: int = 3) -> float:
     """Device time a call of ``fn``'s kernels whose names contain ``match``,
     from ``torch.profiler`` over ``calls`` warm calls: the kernels alone,
     without the host's time before a launch, which single calls timed with
-    CUDA events include. A session that records no kernel (one in a few
-    hundred did on an H100) is run again, up to ``tries`` sessions."""
+    CUDA events include. The median over ``sessions`` sessions: on an H100
+    one session in a few hundred recorded no kernel, or only some kernels
+    of a call of several."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    times = []
+    for _ in range(sessions):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
@@ -679,9 +691,11 @@ def device_ms(torch, fn, match: str, calls: int = 10, tries: int = 3) -> float:
         us = sum(evt.self_device_time_total for evt in prof.key_averages()
                  if evt.device_type == torch.autograd.DeviceType.CUDA and match in evt.key)
         if us > 0:
-            return us / 1e3 / calls
-    raise AssertionError(f"the profiler recorded no device time for kernels named {match} "
-                         f"in {tries} sessions")
+            times.append(us / 1e3 / calls)
+    if not times:
+        raise AssertionError(f"the profiler recorded no device time for kernels named {match} "
+                             f"in {sessions} sessions")
+    return statistics.median(times)
 
 
 def dw_kernel_phase(torch, card: str) -> dict:
@@ -822,7 +836,8 @@ def mahalanobis_kernel_phase(torch, card: str) -> dict:
 
 
 def kernels_only(torch, root: Path) -> None:
-    """``--kernels-only``: phase 3's checks and times of #8 and #7 with the
+    """``--kernels-only``: phase 3's checks and times of #1 and #2, #8 and
+    #7, and the device time of kernel A and of #4's launches, with the
     ``orbit_tpu_torch`` package under ``root``."""
     sys.path.insert(0, str(root))
     import orbit_tpu_torch
@@ -830,8 +845,35 @@ def kernels_only(torch, root: Path) -> None:
     configure_matmul_precision()
     card = card_line()
     print(f"orbit_tpu_torch from {Path(orbit_tpu_torch.__file__).parent} ({card})")
+    attention_kernel_phase(torch, card)
+    vit_attention_device_time(torch, card)
     dw_kernel_phase(torch, card)
     mahalanobis_kernel_phase(torch, card)
+
+
+def vit_attention_device_time(torch, card: str) -> None:
+    """Kernel A's and #4's device time at ViT-B/32, B = 256, bf16 and f32
+    (A's launch; #4 by launch), the kernels whose attention stages #1 and
+    #2 share: ``--kernels-only`` and ``--breakdown-only`` set two packages
+    side by side."""
+    from orbit_tpu_torch.ops import fused_qkv_attention, fused_qkv_attention_backward
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    d, heads = 768, 12
+    x = torch.randn(256, 50, d, generator=g, device=dev)
+    cot = torch.randn(256, 50, d, generator=g, device=dev)
+    qkv = (torch.randn(d, 3 * d, generator=g, device=dev) * d ** -0.5,
+           torch.randn(3 * d, generator=g, device=dev) * 0.1)
+    for dtype_name, short in (("bfloat16", "bf16"), ("float32", "f32")):
+        dt = getattr(torch, dtype_name)
+        xd, cd, qd = x.to(dt), cot.to(dt), tuple(t.to(dt) for t in qkv)
+        with torch.inference_mode():
+            ms = device_ms(torch, lambda: fused_qkv_attention(xd, *qd, heads),
+                           "fused_qkv_attention")
+        print(f"  fused_qkv_attention vit_b_32 {dtype_name} B=256: kernel {ms:.4f} ms on the "
+              f"device ({card})")
+        launch_breakdown(torch, lambda: fused_qkv_attention_backward(xd, *qd, cd, heads),
+                         "fused_qkv_attention_bwd", card, dtype=short)
 
 
 def bound_attention(backward: bool, b: int, s: int, d: int, dtype_name: str):
@@ -850,9 +892,12 @@ def attention_kernel_phase(torch, card: str) -> dict:
     """Phase 3, #1 and #2: the attention on a raw qkv and its backward
     against their plain versions at the ViT-B/32 and ViT-S/32 shapes (B 256
     and a ragged 13, S 50), f32 and bf16; at B 256 the same bits on a
-    repeat, the kernel's, the plain version's and
-    ``F.scaled_dot_product_attention``'s time (its backward for #2) beside
-    the bound. Rows of the kernels line from ViT-B/32 bf16."""
+    repeat, the kernel's device time (``device_ms``: the kernel alone) and
+    a single call's, the plain version's time, and
+    ``F.scaled_dot_product_attention``'s device time (every kernel of one
+    call: its attention kernels, layout copies and, in the backward, dqkv's
+    assembly) and single call's, beside the bound. Rows of the kernels line
+    from ViT-B/32 bf16."""
     import torch.nn.functional as F
 
     from orbit_tpu_torch.ops.tiny_attention import tiny_attention, tiny_attention_backward
@@ -882,26 +927,37 @@ def attention_kernel_phase(torch, card: str) -> dict:
                     rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], max_abs)
                     if b == 256:
                         _repeat_check(torch, run, ours, where)
-                        ms, plain_ms = cuda_ms(lambda: run(None)), cuda_ms(lambda: run("reference"))
+                        ms = device_ms(torch, lambda: run(None), "tiny_attention")
+                        call_ms = cuda_ms(lambda: run(None))
+                        plain_ms = cuda_ms(lambda: run("reference"))
                         # the same function in one library call: SDPA on
                         # (B, H, S, hd) views of q, k and v (no copy)
                         leaf = qkv.detach().requires_grad_(name == "tiny_attention_bwd")
                         q, k, v = leaf.view(b, 50, 3, heads, 64).permute(2, 0, 3, 1, 4)
                         if name == "tiny_attention":
-                            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+                            def library():
+                                return F.scaled_dot_product_attention(q, k, v)
                         else:
                             out = F.scaled_dot_product_attention(q, k, v)
                             up = cot.view(b, 50, heads, 64).transpose(1, 2)
-                            library_ms = cuda_ms(lambda: torch.autograd.grad(
-                                out, leaf, up, retain_graph=True))
-                            del out
+
+                            def library():
+                                return torch.autograd.grad(out, leaf, up, retain_graph=True)
+                        library_ms = device_ms(torch, library, "")
+                        library_call_ms = cuda_ms(library)
                         bound_ms, by = bound_attention(name.endswith("_bwd"), b, 50, d, dtype_name)
-                        line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-                                 f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), same bits "
-                                 f"on a repeat ({card})")
+                        line += (f"; kernel {ms:.4f} ms on the device ({100 * bound_ms / ms:.1f}% "
+                                 f"of the bound), {call_ms:.4f} ms a call, plain {plain_ms:.4f} "
+                                 f"ms, SDPA {library_ms:.4f} ms on the device, "
+                                 f"{library_call_ms:.4f} ms a call, bound {bound_ms:.4f} ms "
+                                 f"({by}), same bits on a repeat ({card})")
                         if vit == "vit_b_32" and dtype_name == "bfloat16":
-                            rows[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                              bound_by=by, library_ms=library_ms)
+                            rows[name].update(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                                              bound_ms=bound_ms, bound_by=by,
+                                              library_ms=library_ms)
+                        del leaf, q, k, v
+                        if name == "tiny_attention_bwd":
+                            del out
                     print(line)
     return rows
 
@@ -1602,11 +1658,12 @@ def main(argv=None) -> int:
                         help="seed of the weights, the synthetic tasks, the grad subsets and "
                              "the kernels' inputs (default %(default)s)")
     parser.add_argument("--breakdown-only", type=Path, metavar="DIR",
-                        help="print only the per-launch breakdown of #4 and #6 with the "
-                             "orbit_tpu_torch package under DIR")
+                        help="print only A's device time and the per-launch breakdown of #4 "
+                             "and #6 with the orbit_tpu_torch package under DIR")
     parser.add_argument("--kernels-only", type=Path, metavar="DIR",
-                        help="print only phase 3's checks and times of #8 and #7 with the "
-                             "orbit_tpu_torch package under DIR")
+                        help="print only phase 3's checks and times of #1, #2, #8 and #7, "
+                             "and A's and #4's device time, with the orbit_tpu_torch "
+                             "package under DIR")
     opts = parser.parse_args(argv)
     SEED = opts.seed
     if not (REPO / "orbit_tpu_torch" / "csrc").is_dir():

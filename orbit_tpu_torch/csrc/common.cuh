@@ -67,12 +67,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 // Raise a kernel's dynamic shared-memory limit once (above 48 KB it must be
 // requested); returns a cudaError_t code, 0 on success.
 template <typename Kernel>

@@ -30,9 +30,9 @@
 // bandwidth. The block streams x[b] (S x D) and the head's 3*hd columns of
 // W over D in KT-wide tiles through shared memory and accumulates q, k and
 // v (S x 3*hd, f32 in registers, 4 x 12 per thread, read from shared memory
-// as float4s). q, k, v (rounded to T) then stay in shared memory for the
-// scores, the per-row softmax (one warp per row) and the AV product
-// (attention.cuh's attend_fma).
+// as float4s). q, k, v (rounded to T) then stay in shared memory for
+// attention.cuh's f32 stage attend_f32 (shared with #1): the scores, the
+// softmax and the AV product in 4 x 4 register tiles.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cmath>
@@ -47,24 +47,21 @@ namespace {
 
 using orbit::round_to;
 using orbit::to_float;
-using orbit::attn::ldsm_x4;
-using orbit::attn::ldsm_x4_t;
-using orbit::attn::mma_16816;
 using orbit::attn::pack_bf16;
 using orbit::attn::kHeadDim;
 using orbit::attn::kMaxTokens;
-using orbit::attn::kQkvLd;
-using orbit::attn::kScoreLd;
+using orbit::attn::kFLd;
+using orbit::attn::kFTile;
+using orbit::attn::kSLd;  // bf16 row stride of q, k, v: 144 bytes
 using orbit::attn::kThreads;  // 16 x 16 thread grid in the projection
 
 constexpr int kTileK = 32;            // D tile streamed per step
 constexpr int kCols = 3 * kHeadDim;   // q | k | v columns of one head
 constexpr int kXLd = kTileK + 4;      // float4-aligned rows
 
-constexpr int kQkvFloats = 3 * kMaxTokens * kQkvLd;
+constexpr int kQkvFloats = 3 * kFTile;
 constexpr int kStageFloats = kMaxTokens * kXLd + kTileK * kCols;
-constexpr int kScoreFloats = kMaxTokens * kScoreLd;
-constexpr int kUnionFloats = kStageFloats > kScoreFloats ? kStageFloats : kScoreFloats;
+constexpr int kUnionFloats = kStageFloats > kFTile ? kStageFloats : kFTile;
 constexpr size_t kSmemBytes = sizeof(float) * (kQkvFloats + kUnionFloats);
 
 constexpr int kRowsPerThread = kMaxTokens / 16;  // 4
@@ -76,13 +73,13 @@ fused_qkv_attention_kernel(const T* __restrict__ x, const T* __restrict__ w,
                            const T* __restrict__ bias, T* __restrict__ out,
                            int S, int D, int H) {
   extern __shared__ float smem[];
-  float* qs = smem;                        // [kMaxTokens][kQkvLd]
-  float* ks = qs + kMaxTokens * kQkvLd;
-  float* vs = ks + kMaxTokens * kQkvLd;
-  float* stage = vs + kMaxTokens * kQkvLd;
+  float* qs = smem;                        // [kMaxTokens][kFLd]
+  float* ks = qs + kFTile;
+  float* vs = ks + kFTile;
+  float* stage = vs + kFTile;
   float* xs = stage;                       // [kMaxTokens][kXLd]   (projection)
   float* ws = stage + kMaxTokens * kXLd;   // [kTileK][kCols]     (projection)
-  float* sc = stage;                       // [kMaxTokens][kScoreLd] (attention)
+  float* ps = stage;                       // [kMaxTokens][kFLd]    (attention: p)
 
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
@@ -148,12 +145,12 @@ fused_qkv_attention_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
     for (int i = 0; i < kRowsPerThread; ++i) {
       const int r = ty * kRowsPerThread + i;
-      dst[r * kQkvLd + c] = round_to<T>(acc[i][j] + bj);
+      dst[r * kFLd + c] = round_to<T>(acc[i][j] + bj);
     }
   }
-  __syncthreads();  // the staging tiles are dead from here: sc reuses them
-  orbit::attn::attend_fma<T>(qs, ks, vs, sc,
-                             out + static_cast<size_t>(b) * S * D + h * kHeadDim, S, D);
+  __syncthreads();  // the staging tiles are dead from here: p reuses them
+  orbit::attn::attend_f32(qs, ks, vs, ps, out + static_cast<size_t>(b) * S * D + h * kHeadDim,
+                          S, D);
 }
 
 // ---------------------------------------------------------------------------
@@ -176,99 +173,10 @@ constexpr int kWgCols = 3 * kHeadDim;                 // 192: [q | k | v] of one
 constexpr int kWgStages = 5;
 using WgRing = orbit::wg::Ring<kWgCols, kWgStages>;
 constexpr int kQkvRows = orbit::wg::kBM + kMaxTokens;  // a sequence's 64 key slots stay inside
-constexpr int kSLd = kHeadDim + 8;                    // bf16 row stride: 144 bytes
 constexpr size_t kQkvBytes = 3ull * kQkvRows * kSLd * sizeof(__nv_bfloat16);
 constexpr size_t kWgSmemBytes = WgRing::kSmemBytes;
 static_assert(kQkvBytes <= WgRing::kStages * WgRing::kStageBytes,
               "q, k, v must fit in the pipeline's stages");
-
-// One warp: query rows q0..q0+15 of the sequence whose S rows start at
-// row r0 of the q, k, v tiles; out rows < S go to ob (out[first row of the
-// sequence, h*hd]). Rows and key slots past S read finite values (the next
-// sequence, or the zeroed tail) and are masked or not stored.
-__device__ __forceinline__ void attend_rows(const __nv_bfloat16* qs, const __nv_bfloat16* ks,
-                                            const __nv_bfloat16* vs, int r0, int q0, int S,
-                                            __nv_bfloat16* __restrict__ ob, int D) {
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4, c2 = 2 * (lane % 4);
-  // ---- scores = q k^T: 16 rows x 64 key slots (8 tiles of 8), f32 ----
-  float sc[8][4];
-#pragma unroll
-  for (int t = 0; t < 8; ++t) sc[t][0] = sc[t][1] = sc[t][2] = sc[t][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < kHeadDim; kk += 16) {
-    uint32_t a[4];
-    ldsm_x4(qs + (r0 + q0 + (lane % 8) + 8 * ((lane / 8) % 2)) * kSLd + kk + 8 * (lane / 16), a);
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {  // key slots 16 np .. 16 np + 15
-      uint32_t b[4];
-      ldsm_x4(ks + (r0 + 16 * np + (lane % 8) + 8 * (lane / 16)) * kSLd + kk +
-                  8 * ((lane / 8) % 2),
-              b);
-      mma_16816(sc[2 * np], a, b[0], b[1]);
-      mma_16816(sc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-  // ---- softmax (f32) over the S real keys, scaled after the dot ----
-  const float scale = 1.0f / sqrtf(static_cast<float>(kHeadDim));
-  float m[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int t = 0; t < 8; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int j = 8 * t + c2 + (e % 2);
-      sc[t][e] = j < S ? sc[t][e] * scale : -INFINITY;
-      m[e / 2] = fmaxf(m[e / 2], sc[t][e]);
-    }
-  float sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
-    m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
-  }
-#pragma unroll
-  for (int t = 0; t < 8; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      sc[t][e] = expf(sc[t][e] - m[e / 2]);  // 0 past S
-      sum[e / 2] += sc[t][e];
-    }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
-    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
-  }
-  // ---- out = cast_bf16(f32(cast_bf16(p) v)): p is the A operand as it lies ----
-  float o[8][4];
-#pragma unroll
-  for (int t = 0; t < 8; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
-#pragma unroll
-  for (int ks16 = 0; ks16 < 4; ++ks16) {  // key slots 16 ks16 .. + 15
-    const uint32_t a[4] = {
-        pack_bf16(sc[2 * ks16][0] / sum[0], sc[2 * ks16][1] / sum[0]),
-        pack_bf16(sc[2 * ks16][2] / sum[1], sc[2 * ks16][3] / sum[1]),
-        pack_bf16(sc[2 * ks16 + 1][0] / sum[0], sc[2 * ks16 + 1][1] / sum[0]),
-        pack_bf16(sc[2 * ks16 + 1][2] / sum[1], sc[2 * ks16 + 1][3] / sum[1])};
-#pragma unroll
-    for (int dp = 0; dp < 4; ++dp) {  // head columns 16 dp .. 16 dp + 15
-      uint32_t b[4];
-      ldsm_x4_t(vs + (r0 + 16 * ks16 + (lane % 8) + 8 * ((lane / 8) % 2)) * kSLd + 16 * dp +
-                    8 * (lane / 16),
-                b);
-      mma_16816(o[2 * dp], a, b[0], b[1]);
-      mma_16816(o[2 * dp + 1], a, b[2], b[3]);
-    }
-  }
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int i = q0 + g + 8 * half;
-    if (i >= S) continue;
-#pragma unroll
-    for (int t = 0; t < 8; ++t)
-      *reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(i) * D + 8 * t + c2) =
-          pack_bf16(o[t][2 * half], o[t][2 * half + 1]);
-  }
-}
 
 __global__ void __launch_bounds__(orbit::wg::kThreads, 1)
 fused_qkv_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
@@ -312,8 +220,8 @@ fused_qkv_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
   const int qtiles = (S + 15) / 16;
   for (int u = threadIdx.x / 32; u < nseq_here * qtiles; u += orbit::wg::kThreads / 32) {
     const int q = u / qtiles, q0 = (u % qtiles) * 16;
-    attend_rows(qs, ks, vs, q * S, q0, S,
-                out + static_cast<size_t>(row0 + q * S) * D + h * kHeadDim, D);
+    orbit::attn::attend_rows(qs, ks, vs, q * S, q0, S,
+                             out + static_cast<size_t>(row0 + q * S) * D + h * kHeadDim, D);
   }
 }
 

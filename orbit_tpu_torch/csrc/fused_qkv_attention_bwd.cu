@@ -27,7 +27,8 @@
 // 1. qkv = cast(x . W + b) on wgmma.cuh's mainloop, 128 x 128 tiles, into
 //    a bf16 (B,S,3D) workspace.
 // 2. The attention backward, one block of 4 warps per (batch row, head),
-//    on the tensor cores (mma.sync m16n8k16, as kernel A's forward stage):
+//    on the tensor cores (mma.sync m16n8k16; attention.cuh's strips, which
+//    #2 shares):
 //    q, k, v and g of the head in shared memory (64 rows, zero past S);
 //    warp w computes the scores and dp for query rows 16w.. in registers,
 //    the softmax, ds and dq = cast(ds * scale) . k, and leaves cast(p) and
@@ -45,8 +46,8 @@
 //
 // f32, and bf16 at other widths: the same stages on the CUDA cores (true
 // f32): the products as common.cuh's FMA loops, the attention backward as
-// attention.cuh's block (shared with #2, tiny_attention.cu) writing an f32
-// dqkv, db as a two-pass column sum.
+// attention.cuh's f32 block in 4 x 4 register tiles (shared with #2,
+// tiny_attention.cu) writing an f32 dqkv, db as a two-pass column sum.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -67,9 +68,6 @@ using orbit::MatT;
 using orbit::to_float;
 using orbit::attn::kHeadDim;
 using orbit::attn::kMaxTokens;
-using orbit::attn::ldsm_x4;
-using orbit::attn::ldsm_x4_t;
-using orbit::attn::mma_16816;
 using orbit::attn::pack_bf16;
 
 // ---------------------------------------------------------------------------
@@ -93,8 +91,8 @@ __global__ void __launch_bounds__(orbit::attn::kThreads)
 attention_backward_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
                           float* __restrict__ dqkv, int S, int D, int H) {
   extern __shared__ float smem[];
-  orbit::attn::attention_backward_block<T, float>(qkv, g, dqkv, blockIdx.x / H,
-                                                  blockIdx.x % H, S, D, smem);
+  orbit::attn::attention_backward_block(qkv, g, dqkv, blockIdx.x / H, blockIdx.x % H, S, D,
+                                        smem);
 }
 
 template <typename T>
@@ -148,10 +146,11 @@ qkv_recompute_kernel(const __grid_constant__ CUtensorMap map_x,
   });
 }
 
-// 2. the attention backward on the tensor cores
+// 2. the attention backward on the tensor cores (attention.cuh's strips,
+// shared with #2)
 constexpr int kAttnWarps = kMaxTokens / 16;  // one 16-row strip of queries, then of keys, each
 constexpr int kAttnThreads = 32 * kAttnWarps;
-constexpr int kLd = kHeadDim + 8;  // bf16 row stride (144 bytes): ldmatrix rows on distinct banks
+constexpr int kLd = orbit::attn::kSLd;  // bf16 row stride: 144 bytes
 constexpr int kTileElems = kMaxTokens * kLd;
 constexpr int kCols = 3 * kHeadDim;  // dq | dk | dv columns of one head
 // q, k, v, g, cast(p), cast(ds * scale) tiles (the column sums' scratch
@@ -159,38 +158,6 @@ constexpr int kCols = 3 * kHeadDim;  // dq | dk | dv columns of one head
 constexpr size_t kAttnSmem = 6 * kTileElems * sizeof(bf16);
 static_assert(kAttnWarps * kCols * sizeof(float) <= kTileElems * sizeof(bf16),
               "the column sums' scratch must fit in v's tile");
-
-// rows q0.. q0 + 15 of a 16 x 64 f32 strip held as mma.sync C fragments:
-// fragment t covers columns 8t.., and this lane holds rows q0 + lane / 4
-// (c[0], c[1]) and q0 + lane / 4 + 8 (c[2], c[3]), columns 8t + 2 (lane % 4)
-// + {0, 1}. Stores the rows below S, rounded to bf16, at out (row 0, the
-// strip's first column; rows ld apart), and the strip's f32 column sums
-// over those rows at red[8t + 2 (lane % 4) + {0, 1}].
-__device__ __forceinline__ void store_strip(const float (&c)[8][4], int q0, int S,
-                                            bf16* __restrict__ out, size_t ld, float* red) {
-  const int lane = threadIdx.x % 32;
-  const int r = q0 + lane / 4, c2 = 2 * (lane % 4);
-  const bool live0 = r < S, live1 = r + 8 < S;
-#pragma unroll
-  for (int t = 0; t < 8; ++t) {
-    if (live0)
-      *reinterpret_cast<uint32_t*>(out + r * ld + 8 * t + c2) = pack_bf16(c[t][0], c[t][1]);
-    if (live1)
-      *reinterpret_cast<uint32_t*>(out + (r + 8) * ld + 8 * t + c2) =
-          pack_bf16(c[t][2], c[t][3]);
-    float s0 = (live0 ? c[t][0] : 0.f) + (live1 ? c[t][2] : 0.f);
-    float s1 = (live0 ? c[t][1] : 0.f) + (live1 ? c[t][3] : 0.f);
-#pragma unroll
-    for (int o = 4; o < 32; o <<= 1) {  // the strip's 16 rows, in a fixed order
-      s0 += __shfl_xor_sync(0xffffffffu, s0, o);
-      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-    }
-    if (lane < 4) {
-      red[8 * t + c2] = s0;
-      red[8 * t + c2 + 1] = s1;
-    }
-  }
-}
 
 __global__ void __launch_bounds__(kAttnThreads, 4)
 attention_bwd_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ g,
@@ -207,7 +174,7 @@ attention_bwd_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int d3 = 3 * D;
   const size_t row0 = static_cast<size_t>(b) * S;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
 
   // q, k, v and g of the head, 16 bytes a thread, rows >= S zero
   for (int e = threadIdx.x; e < kMaxTokens * 4 * (kHeadDim / 8); e += kAttnThreads) {
@@ -222,143 +189,34 @@ attention_bwd_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
   }
   __syncthreads();
 
-  const int g4 = lane / 4, c2 = 2 * (lane % 4);
-  const float scale = 1.0f / sqrtf(static_cast<float>(kHeadDim));
+  // warp w: the scores and dp of query rows 16w.., the softmax, ds and dq;
+  // cast(p) and cast(ds * scale) to shared memory for the key side
   float dq[8][4] = {};
   const int q0 = 16 * warp;
   if (q0 < S) {
-    // ---- scores = q k^T and dp = g v^T: 16 query rows x 64 key slots, f32 ----
-    float sc[8][4] = {}, dp[8][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < kHeadDim; kk += 16) {
-      uint32_t aq[4], ag[4];
-      const int arow = (q0 + (lane % 8) + 8 * ((lane / 8) % 2)) * kLd + kk + 8 * (lane / 16);
-      ldsm_x4(qs + arow, aq);
-      ldsm_x4(gs + arow, ag);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {  // key slots 16 np .. 16 np + 15
-        const int brow = (16 * np + (lane % 8) + 8 * (lane / 16)) * kLd + kk + 8 * ((lane / 8) % 2);
-        uint32_t bk[4], bv[4];
-        ldsm_x4(ks + brow, bk);
-        ldsm_x4(vs + brow, bv);
-        mma_16816(sc[2 * np], aq, bk[0], bk[1]);
-        mma_16816(sc[2 * np + 1], aq, bk[2], bk[3]);
-        mma_16816(dp[2 * np], ag, bv[0], bv[1]);
-        mma_16816(dp[2 * np + 1], ag, bv[2], bv[3]);
-      }
-    }
-    // ---- softmax (f32) over the S real keys, scaled after the dot ----
-    float m[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int t = 0; t < 8; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = 8 * t + c2 + (e % 2);
-        sc[t][e] = j < S ? sc[t][e] * scale : -INFINITY;
-        m[e / 2] = fmaxf(m[e / 2], sc[t][e]);
-      }
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
-      m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
-    }
-#pragma unroll
-    for (int t = 0; t < 8; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sc[t][e] = expf(sc[t][e] - m[e / 2]);  // 0 past S
-        sum[e / 2] += sc[t][e];
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
-    }
-    // ---- p = e / sum; rowsum(dp * p); ds = p (dp - rowsum) * scale ----
-    float tr[2] = {0.f, 0.f};
-#pragma unroll
-    for (int t = 0; t < 8; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sc[t][e] = sc[t][e] / sum[e / 2];
-        tr[e / 2] += dp[t][e] * sc[t][e];
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      tr[i] += __shfl_xor_sync(0xffffffffu, tr[i], 1);
-      tr[i] += __shfl_xor_sync(0xffffffffu, tr[i], 2);
-    }
-    // query rows >= S hold zeros in p and ds, so they add nothing to dv, dk
-    const bool live[2] = {q0 + g4 < S, q0 + g4 + 8 < S};
-#pragma unroll
-    for (int t = 0; t < 8; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool on = live[e / 2];
-        dp[t][e] = on ? sc[t][e] * (dp[t][e] - tr[e / 2]) * scale : 0.f;  // ds * scale
-        sc[t][e] = on ? sc[t][e] : 0.f;
-      }
-    // cast(p) and cast(ds * scale) for the key-side products
-#pragma unroll
-    for (int t = 0; t < 8; ++t)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int o = (q0 + g4 + 8 * half) * kLd + 8 * t + c2;
-        *reinterpret_cast<uint32_t*>(ps + o) = pack_bf16(sc[t][2 * half], sc[t][2 * half + 1]);
-        *reinterpret_cast<uint32_t*>(dss + o) = pack_bf16(dp[t][2 * half], dp[t][2 * half + 1]);
-      }
-    // ---- dq = cast(ds * scale) . k: ds is the A operand as it lies ----
-#pragma unroll
-    for (int k16 = 0; k16 < 4; ++k16) {  // key slots 16 k16 .. + 15
-      const uint32_t a[4] = {pack_bf16(dp[2 * k16][0], dp[2 * k16][1]),
-                             pack_bf16(dp[2 * k16][2], dp[2 * k16][3]),
-                             pack_bf16(dp[2 * k16 + 1][0], dp[2 * k16 + 1][1]),
-                             pack_bf16(dp[2 * k16 + 1][2], dp[2 * k16 + 1][3])};
-#pragma unroll
-      for (int n16 = 0; n16 < 4; ++n16) {  // head columns 16 n16 .. + 15
-        uint32_t bk[4];
-        ldsm_x4_t(ks + (16 * k16 + (lane % 8) + 8 * ((lane / 8) % 2)) * kLd + 16 * n16 +
-                      8 * (lane / 16),
-                  bk);
-        mma_16816(dq[2 * n16], a, bk[0], bk[1]);
-        mma_16816(dq[2 * n16 + 1], a, bk[2], bk[3]);
-      }
-    }
+    float sc[8][4], dp[8][4];
+    uint32_t p16[8][2], ds16[8][2];
+    orbit::attn::scores_dp_strip(qs, ks, vs, gs, q0, sc, dp);
+    orbit::attn::softmax_ds_strip(sc, dp, q0, S);
+    orbit::attn::pack_strip(sc, p16);
+    orbit::attn::pack_strip(dp, ds16);
+    orbit::attn::store_p_ds(p16, ds16, q0, ps, dss);
+    orbit::attn::dq_strip(ds16, ks, dq);
   }
   __syncthreads();  // cast(p) and cast(ds * scale) of every query row
 
-  // ---- dv = cast(p)^T . g and dk = cast(ds * scale)^T . q, key rows k0.. ----
+  // dv = cast(p)^T . g and dk = cast(ds * scale)^T . q, key rows 16w..
   float dk[8][4] = {}, dv[8][4] = {};
   const int k0 = 16 * warp;
-  if (k0 < S) {
-    for (int kq = 0; kq < (S + 15) / 16; ++kq) {  // query rows 16 kq .. + 15
-      // A = the transpose of a 16 x 16 block of p (ds): ldmatrix.trans of
-      // its stored [query][key] rows
-      const int arow = (16 * kq + (lane % 8) + 8 * (lane / 16)) * kLd + k0 + 8 * ((lane / 8) % 2);
-      uint32_t ap[4], ads[4];
-      ldsm_x4_t(ps + arow, ap);
-      ldsm_x4_t(dss + arow, ads);
-#pragma unroll
-      for (int n16 = 0; n16 < 4; ++n16) {
-        const int brow =
-            (16 * kq + (lane % 8) + 8 * ((lane / 8) % 2)) * kLd + 16 * n16 + 8 * (lane / 16);
-        uint32_t bg[4], bq[4];
-        ldsm_x4_t(gs + brow, bg);
-        ldsm_x4_t(qs + brow, bq);
-        mma_16816(dv[2 * n16], ap, bg[0], bg[1]);
-        mma_16816(dv[2 * n16 + 1], ap, bg[2], bg[3]);
-        mma_16816(dk[2 * n16], ads, bq[0], bq[1]);
-        mma_16816(dk[2 * n16 + 1], ads, bq[2], bq[3]);
-      }
-    }
-  }
+  if (k0 < S) orbit::attn::dk_dv_strip(ps, dss, gs, qs, k0, S, dk, dv);
 
   // ---- dq | dk | dv to dqkv (bf16), their column sums to red ----
   bf16* out = dqkv + row0 * d3 + h * kHeadDim;
-  store_strip(dq, q0, S, out, d3, red + warp * kCols);
-  store_strip(dk, k0, S, out + D, d3, red + warp * kCols + kHeadDim);
-  store_strip(dv, k0, S, out + 2 * D, d3, red + warp * kCols + 2 * kHeadDim);
+  orbit::attn::store_strip<true, false>(dq, q0, S, out, d3, red + warp * kCols, nullptr);
+  orbit::attn::store_strip<true, false>(dk, k0, S, out + D, d3, red + warp * kCols + kHeadDim,
+                                        nullptr);
+  orbit::attn::store_strip<true, false>(dv, k0, S, out + 2 * D, d3,
+                                        red + warp * kCols + 2 * kHeadDim, nullptr);
   __syncthreads();
   for (int c = threadIdx.x; c < kCols; c += kAttnThreads) {
     float s = 0.f;

@@ -59,10 +59,13 @@ _SIGNATURES = {
     "orbit_fused_mlp_block_bwd_bf16": [_P] * 20 + [_I, _I, _I, _F, _P],
     # qkv, out, B, S, D, H, stream
     "orbit_tiny_attention_f32": [_P, _P, _I, _I, _I, _I, _P],
-    "orbit_tiny_attention_bf16": [_P, _P, _I, _I, _I, _I, _P],
+    # the same with the plan's sequences a tile, stage rows and blocks before
+    # the stream
+    "orbit_tiny_attention_bf16": [_P, _P] + [_I] * 7 + [_P],
     # qkv, g, dqkv, B, S, D, H, stream
     "orbit_tiny_attention_bwd_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "orbit_tiny_attention_bwd_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # the same with the plan's blocks before the stream
+    "orbit_tiny_attention_bwd_bf16": [_P, _P, _P] + [_I] * 5 + [_P],
     # f, mu, P, class_mask, partial, out, M, D, C, splits, scale, stream
     "orbit_mahalanobis_logits": [_P] * 6 + [_I, _I, _I, _I, _F, _P],
     # x, taps, a1, b1, a2, b2, out, N, H, W, C, K, pad_top, pad_left, act1,

@@ -4,7 +4,9 @@ of ``csrc/grads.cuh``'s launch, which rows each partial column sum covers,
 and the order in which the second pass adds them (the bf16 backward
 routes); the geometry, staging and schedule of the fused depthwise tail
 (#8, ``csrc/depthwise.cu``); the tiles and partial sums of the Mahalanobis
-logits (#7, ``csrc/mahalanobis.cu``).
+logits (#7, ``csrc/mahalanobis.cu``); the tiles, walks, rings and strips
+of the bf16 attention on a raw qkv and its backward (#1 and #2,
+``csrc/tiny_attention.cu``).
 
 The backward kernels #4 and #6 never add into a shared sum: every partial
 sum has one writer (a block), covers a fixed run of rows, and a second pass
@@ -334,3 +336,233 @@ def maha_emulate(features, means, precisions, class_mask, logit_scale: float = 1
                 total = total + part
         out[:, k] = -logit_scale * total
     return out
+
+
+# ---- #1 and #2, the attention on a raw qkv (csrc/tiny_attention.cu), bf16 ----
+ATTN_KEYS = 64          # kMaxTokens: key slots a strip attends over (S <= 64)
+ATTN_HEAD = 64          # kHeadDim
+ATTN_SLD = 72           # kSLd: bf16 row stride of the tiles (144 bytes)
+ATTN_STAGES = 2         # kStages: tiles (items) in a block's ring
+ATTN_FWD_WARPS = 8      # kFwdWarps
+ATTN_BWD_WARPS = 4      # kBwdWarps: a query strip, then a key strip, each
+ATTN_STRIP_BYTES = 2048  # kStripBytes: a warp's staging strip
+ATTN_FWD_PER_SM = 2     # __launch_bounds__ of the forward's blocks
+ATTN_BWD_PER_SM = 3     # and of the backward's
+SM_SMEM = 233472        # shared memory of one H100 SM (228 KB)
+BLOCK_RESERVED = 1024   # of which the system keeps this much a block
+
+
+class AttnPlan(NamedTuple):
+    """A launch of #1's or #2's bf16 kernel: ``blocks`` persistent blocks
+    of ``smem`` bytes walk ``tiles`` tiles (the backward's items, one
+    (batch row, head) each), ``per_sm`` blocks an SM; a tile packs ``nseq``
+    whole sequences of one head, its q, k, v (and g) tiles ``rows`` rows a
+    stage."""
+    nseq: int
+    tiles: int
+    rows: int
+    smem: int
+    per_sm: int
+    blocks: int
+
+
+def attn_per_sm(smem: int, cap: int) -> int:
+    """Blocks of ``smem`` bytes one SM holds, at most ``cap``."""
+    return min(cap, SM_SMEM // (smem + BLOCK_RESERVED))
+
+
+def attn_fwd_smem(rows: int) -> int:
+    """``fwd_smem``: the ring of q, k, v and the warps' staging strips."""
+    return ATTN_STAGES * 3 * rows * ATTN_SLD * 2 + ATTN_FWD_WARPS * ATTN_STRIP_BYTES
+
+
+def attn_fwd_plan(b: int, s: int, h: int, sms: int) -> AttnPlan:
+    """#1's launch: tiles of nseq = floor(TILE / S) whole sequences of one
+    head (``ops/tiny_attention.py::sequence_tiles``), H tiles a row of
+    tiles; ``rows`` = (nseq - 1) S + 64, so the last sequence's 64 key
+    slots stay in the stage; as many blocks as the SMs hold, at most one a
+    tile."""
+    nseq = TILE // s
+    tiles = h * -(-b // nseq)
+    rows = (nseq - 1) * s + ATTN_KEYS
+    smem = attn_fwd_smem(rows)
+    per_sm = attn_per_sm(smem, ATTN_FWD_PER_SM)
+    return AttnPlan(nseq, tiles, rows, smem, per_sm, min(tiles, sms * per_sm))
+
+
+ATTN_BWD_SMEM = ATTN_STAGES * 4 * ATTN_KEYS * ATTN_SLD * 2  # kBwdSmem: q, k, v, g a stage
+
+
+def attn_bwd_plan(b: int, s: int, h: int, sms: int) -> AttnPlan:
+    """#2's launch: items of one (batch row, head), 64-row tiles."""
+    per_sm = attn_per_sm(ATTN_BWD_SMEM, ATTN_BWD_PER_SM)
+    return AttnPlan(1, b * h, ATTN_KEYS, ATTN_BWD_SMEM, per_sm, min(b * h, sms * per_sm))
+
+
+def attn_walk(plan: AttnPlan):
+    """The tiles each block walks, in order: block k takes k, k + blocks, ..."""
+    return [list(range(k, plan.tiles, plan.blocks)) for k in range(plan.blocks)]
+
+
+def attn_ring(walk):
+    """The ring's schedule for one block's walk: per step n, (the stage tile
+    n + 1 is copied into or None, the stage tile n is read from). Asserts
+    that a copy lands only in a stage whose tile every warp has finished
+    (the barrier that ends step n - 1) and that step n reads the stage
+    holding tile n."""
+    held = [None] * ATTN_STAGES
+    if walk:
+        held[0] = walk[0]
+    done, steps = set(), []
+    for n, t in enumerate(walk):
+        into = None
+        if n + 1 < len(walk):
+            into = (n + 1) % ATTN_STAGES
+            assert held[into] is None or held[into] in done, (n, held)
+            held[into] = walk[n + 1]
+        s = n % ATTN_STAGES
+        assert held[s] == t, (n, held)
+        steps.append((into, s))
+        done.add(t)
+    return steps
+
+
+def attn_tile(t: int, b: int, h: int, nseq: int):
+    """Tile t's (head, first sequence, sequences)."""
+    seq0 = (t // h) * nseq
+    return t % h, seq0, min(nseq, b - seq0)
+
+
+def attn_units(nseq_here: int, s: int, warps: int = ATTN_FWD_WARPS):
+    """Each warp's (sequence in the tile, first query row) strips of 16
+    rows, in the order it takes them: unit u to warp u % warps."""
+    qtiles = -(-s // 16)
+    return [[(u // qtiles, (u % qtiles) * 16) for u in range(w, nseq_here * qtiles, warps)]
+            for w in range(warps)]
+
+
+def _attn_stage(boxes, row0: int, live: int, rows: int) -> torch.Tensor:
+    """A stage as the copies leave it: for each (tensor, first column) box,
+    ``rows`` rows of 64 columns from ``row0``, those past ``live`` zero,
+    as f32 values."""
+    out = torch.zeros(len(boxes), rows, ATTN_HEAD)
+    for i, (src, c) in enumerate(boxes):
+        out[i, :live] = src[row0:row0 + live, c:c + ATTN_HEAD].float()
+    return out
+
+
+def _strip_softmax(sc: torch.Tensor, s: int) -> torch.Tensor:
+    """p of a strip's f32 scores (16, 64 key slots): scaled after the dot,
+    the slots past S masked, softmax in f32."""
+    sc = sc * (1.0 / ATTN_HEAD ** 0.5)
+    sc[:, s:] = float("-inf")
+    e = torch.exp(sc - sc.amax(dim=1, keepdim=True))
+    return e / e.sum(dim=1, keepdim=True)
+
+
+def attn_emulate(qkv: torch.Tensor, num_heads: int, sms: int = 132):
+    """#1's bf16 schedule on the CPU in qkv's dtype: per block its walk
+    through the ring (``attn_ring``), per tile each warp's strips, each
+    strip the kernel's rounding points (f32 scores over the sequence's 64
+    key slots, masked past S, f32 softmax, p rounded to the dtype, p v
+    summed in f32 and rounded once) and its stores (the strip's rows q0 + i
+    < S, at the sequence's first row + q0 + i of the (B S + 64, D) output
+    rows). Returns (out, writes): out (B S + 64, D), NaN where no strip
+    wrote, and the writes of each (output row, head)."""
+    dt = qkv.dtype
+    n, s, d3 = qkv.shape
+    d = d3 // 3
+    plan = attn_fwd_plan(n, s, num_heads, sms)
+    flat = qkv.reshape(n * s, d3)
+    out = torch.full((n * s + ATTN_KEYS, d), float("nan"), dtype=dt)
+    writes = torch.zeros(n * s + ATTN_KEYS, num_heads, dtype=torch.int64)
+    for walk in attn_walk(plan):
+        stages = [None] * ATTN_STAGES
+
+        def load(t, into):
+            hh, seq0, here = attn_tile(t, n, num_heads, plan.nseq)
+            boxes = [(flat, p * d + hh * ATTN_HEAD) for p in range(3)]
+            stages[into] = _attn_stage(boxes, seq0 * s, here * s, plan.rows)
+
+        if walk:
+            load(walk[0], 0)
+        for step, ((into, at), t) in enumerate(zip(attn_ring(walk), walk)):
+            if into is not None:
+                load(walk[step + 1], into)
+            q, k, v = stages[at].to(dt).float()
+            hh, seq0, here = attn_tile(t, n, num_heads, plan.nseq)
+            for units in attn_units(here, s):
+                for qq, q0 in units:
+                    r0 = qq * s
+                    keys, vals = k[r0:r0 + ATTN_KEYS], v[r0:r0 + ATTN_KEYS]
+                    assert keys.shape[0] == ATTN_KEYS  # the slots stay in the stage
+                    p = _strip_softmax(q[r0 + q0:r0 + q0 + 16] @ keys.T, s)
+                    o = (p.to(dt).float() @ vals).to(dt)
+                    live = [i for i in range(16) if q0 + i < s]
+                    rows = [(seq0 + qq) * s + q0 + i for i in live]
+                    out[rows, hh * ATTN_HEAD:(hh + 1) * ATTN_HEAD] = o[live]
+                    writes[rows, hh] += 1
+    return out, writes
+
+
+def attn_bwd_emulate(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, sms: int = 132):
+    """#2's bf16 schedule on the CPU in qkv's dtype: per block its walk
+    through the ring, per item (batch row, head) the query strips (scores
+    and dp over the 64 key slots, f32 softmax and ds with the rows past S
+    zero, cast(p) and cast(ds * scale) into [query][key] tiles whose
+    unwritten rows are NaN, dq = cast(ds * scale) k), then the key strips
+    over the query strips below S (dv = cast(p)^T g, dk = cast(ds *
+    scale)^T q), each sum in f32 rounded once, stored as
+    :func:`attn_emulate` stores. Returns (dqkv, writes): dqkv (B S + 64,
+    3D), writes of each (row, part, head)."""
+    dt = qkv.dtype
+    n, s, d3 = qkv.shape
+    d = d3 // 3
+    plan = attn_bwd_plan(n, s, num_heads, sms)
+    flat, gflat = qkv.reshape(n * s, d3), g.to(dt).reshape(n * s, d)
+    dqkv = torch.full((n * s + ATTN_KEYS, d3), float("nan"), dtype=dt)
+    writes = torch.zeros(n * s + ATTN_KEYS, 3, num_heads, dtype=torch.int64)
+    scale = 1.0 / ATTN_HEAD ** 0.5
+    strips = range(0, 16 * -(-s // 16), 16)  # the strips of rows below S
+    for walk in attn_walk(plan):
+        stages = [None] * ATTN_STAGES
+
+        def load(i, into):
+            b, hh = divmod(i, num_heads)
+            boxes = [(flat, p * d + hh * ATTN_HEAD) for p in range(3)]
+            stages[into] = _attn_stage(boxes + [(gflat, hh * ATTN_HEAD)], b * s, s, ATTN_KEYS)
+
+        if walk:
+            load(walk[0], 0)
+        for step, ((into, at), i) in enumerate(zip(attn_ring(walk), walk)):
+            if into is not None:
+                load(walk[step + 1], into)
+            q, k, v, gg = stages[at].to(dt).float()
+            b, hh = divmod(i, num_heads)
+            ps = torch.full((ATTN_KEYS, ATTN_KEYS), float("nan"))
+            dss = torch.full((ATTN_KEYS, ATTN_KEYS), float("nan"))
+            dq = torch.zeros(ATTN_KEYS, ATTN_HEAD)
+            for q0 in strips:
+                rows = slice(q0, q0 + 16)
+                p = _strip_softmax(q[rows] @ k.T, s)
+                dp = gg[rows] @ v.T
+                ds = p * (dp - (dp * p).sum(dim=1, keepdim=True)) * scale
+                live = (torch.arange(q0, q0 + 16) < s)[:, None]
+                p, ds = torch.where(live, p, 0.0), torch.where(live, ds, 0.0)
+                ps[rows], dss[rows] = p.to(dt).float(), ds.to(dt).float()
+                dq[rows] = dss[rows] @ k
+            dk, dv = torch.zeros_like(dq), torch.zeros_like(dq)
+            for k0 in strips:
+                keys = slice(k0, k0 + 16)
+                for q0 in strips:
+                    qr = slice(q0, q0 + 16)
+                    dv[keys] += ps[qr, keys].T @ gg[qr]
+                    dk[keys] += dss[qr, keys].T @ q[qr]
+            for part, grad in enumerate((dq, dk, dv)):
+                c0 = part * d + hh * ATTN_HEAD
+                for r0 in strips:
+                    live = [j for j in range(16) if r0 + j < s]
+                    out_rows = [b * s + r0 + j for j in live]
+                    dqkv[out_rows, c0:c0 + ATTN_HEAD] = grad[[r0 + j for j in live]].to(dt)
+                    writes[out_rows, part, hh] += 1
+    return dqkv, writes

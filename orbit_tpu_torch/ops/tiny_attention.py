@@ -24,8 +24,10 @@ parameters' dtype (:476). Under ``inference_mode`` nothing is saved.
 
 ``tiny_attention(qkv, num_heads)`` is the attention alone, on the (B, S,
 3D) output of a qkv projection (``orbit_tpu/ops/tiny_attention.py:312``):
-its forward kernel runs kernel A's attention stage on the loaded qkv and
-its backward writes dqkv in qkv's dtype (``csrc/tiny_attention.cu``).
+its bf16 forward kernel runs kernel A's attention strips on A's packed row
+tiles, its bf16 backward #4's, both fed by a ring of ``cp.async`` copies
+(``csrc/tiny_attention.cu``, planned by ``kernels/plans.py::attn_fwd_plan``
+and ``attn_bwd_plan``); the backward writes dqkv in qkv's dtype.
 Like its JAX counterpart, which no learner, backbone or script calls, no
 path of the port calls it: the ViTs always go through the fused op.
 """
@@ -254,36 +256,50 @@ def _check_cotangent(g, shape) -> None:
         raise ValueError(f"cotangent shape {tuple(g.shape)} != {shape}")
 
 
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launch_attention(qkv, num_heads: int) -> torch.Tensor:
+    """#1 on a CUDA tensor; bf16 with the plan :func:`plans.attn_fwd_plan`."""
     n, s, d3 = qkv.shape
     _check_kernel_args("tiny_attention", qkv, d3 // 3, num_heads)
-    qkv = kbuild.aligned(qkv)  # the bf16 kernel loads 16 bytes a thread
+    qkv = kbuild.aligned(qkv)  # 16-byte copies
     out = torch.empty((n, s, d3 // 3), device=qkv.device, dtype=qkv.dtype)
     lib = kbuild.library()
-    fn = (lib.orbit_tiny_attention_bf16 if qkv.dtype == torch.bfloat16
-          else lib.orbit_tiny_attention_f32)
+    args = [qkv.data_ptr(), out.data_ptr(), n, s, d3 // 3, num_heads]
+    if qkv.dtype == torch.bfloat16:
+        plan = plans.attn_fwd_plan(n, s, num_heads, _sm_count(qkv.device))
+        fn = lib.orbit_tiny_attention_bf16
+        args += [plan.nseq, plan.rows, plan.blocks]
+    else:
+        fn = lib.orbit_tiny_attention_f32
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        code = fn(qkv.data_ptr(), out.data_ptr(), n, s, d3 // 3, num_heads, stream)
+        code = fn(*args, stream)
     kbuild.check(code, "tiny_attention")
     kbuild.LAUNCHES["tiny_attention"] += 1
     return out
 
 
 def _launch_attention_backward(qkv, g, num_heads: int) -> torch.Tensor:
+    """#2 on a CUDA tensor; bf16 with the plan :func:`plans.attn_bwd_plan`."""
     n, s, d3 = qkv.shape
     _check_kernel_args("tiny_attention_bwd", qkv, d3 // 3, num_heads, g)
     _check_cotangent(g, (n, s, d3 // 3))
-    qkv = qkv.contiguous()
-    g = g.to(qkv.dtype).contiguous()
+    qkv = kbuild.aligned(qkv)  # 16-byte copies
+    g = kbuild.aligned(g.to(qkv.dtype))
     dqkv = torch.empty_like(qkv)
     lib = kbuild.library()
-    fn = (lib.orbit_tiny_attention_bwd_bf16 if qkv.dtype == torch.bfloat16
-          else lib.orbit_tiny_attention_bwd_f32)
+    args = [qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), n, s, d3 // 3, num_heads]
+    if qkv.dtype == torch.bfloat16:
+        fn = lib.orbit_tiny_attention_bwd_bf16
+        args.append(plans.attn_bwd_plan(n, s, num_heads, _sm_count(qkv.device)).blocks)
+    else:
+        fn = lib.orbit_tiny_attention_bwd_f32
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        code = fn(qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), n, s, d3 // 3, num_heads,
-                  stream)
+        code = fn(*args, stream)
     kbuild.check(code, "tiny_attention_bwd")
     kbuild.LAUNCHES["tiny_attention_bwd"] += 1
     return dqkv

@@ -466,11 +466,14 @@ def test_mlp_block_kernel_matches_plain(cuda_device, dtype, shape):
 
 # the backward kernels at the ViT-B/32 and ViT-S/32 shapes, B = 256 and 13
 BWD_SHAPES = VIT_SHAPES[:4] + [(5, 50, 128, 2)]
+# and #4 at widths that are no multiple of 128, which take its route off the
+# wgmma mainloop in bf16 too (attention.cuh's f32 block on bf16 tiles)
+QKV_BWD_SHAPES = BWD_SHAPES + [(13, 50, 192, 3), (3, 5, 320, 5)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", BWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("shape", QKV_BWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_qkv_attention_backward_kernel_matches_plain(cuda_device, dtype, shape):
     b, s, d, h = shape
     dt = getattr(torch, dtype)
@@ -589,6 +592,33 @@ def test_tiny_attention_kernels_match_plain(cuda_device, dtype, shape):
     torch.cuda.synchronize()
     assert torch.equal(ours, again[0]) and torch.equal(dqkv, again[1])
     assert ours.dtype == dqkv.dtype == dt
+    np.testing.assert_allclose(ours.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               **TOL[dtype])
+    _grads_close([dqkv.cpu()], [dref.float().cpu().numpy()], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tiny_attention_kernels_take_offset_views(cuda_device, dtype):
+    """qkv and g as views one element into larger buffers (off every
+    16-byte boundary): the wrappers hand the kernels' 16-byte copies
+    aligned storage, and the results equal those of aligned inputs."""
+    b, s, d, h = 13, 50, 384, 6
+    dt = getattr(torch, dtype)
+    qkv = torch.from_numpy(_raw_qkv(b, s, d, seed=6)).to(cuda_device, dt)
+    cot = torch.randn(b, s, d, device=cuda_device).to(dt)
+    views = []
+    for t in (qkv, cot):
+        buf = torch.empty(t.numel() + 1, device=cuda_device, dtype=dt)
+        views.append(buf[1:].view(t.shape))
+        views[-1].copy_(t)
+    assert all(v.data_ptr() % 16 for v in views)
+    ours, dqkv = tiny_attention(views[0], h), tiny_attention_backward(*views, h)
+    ref = tiny_attention(qkv, h, impl="reference")
+    dref = tiny_attention_backward(qkv, cot, h, impl="reference")
+    torch.cuda.synchronize()
+    assert torch.equal(ours, tiny_attention(qkv, h))
+    assert torch.equal(dqkv, tiny_attention_backward(qkv, cot, h))
     np.testing.assert_allclose(ours.float().cpu().numpy(), ref.float().cpu().numpy(),
                                **TOL[dtype])
     _grads_close([dqkv.cpu()], [dref.float().cpu().numpy()], dtype)
