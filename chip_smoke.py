@@ -91,13 +91,37 @@ Phases, each of which passes or raises:
    updates must move the trained parameters and leave the frozen extractor
    bit for bit; the median and range of the time per task step and the
    peak device memory.
+8. FineTuner+FiLM path: the port's multi-step learner in ``--mode test``
+   on ViT-B/32-CLIP at full width (224 px, 12 layers, D = 768, pre-norm,
+   LayerNorm eps 1e-5) with ``--adapt_features --classifier linear``, bf16,
+   batch 256 and the CLI's defaults (50 Adam steps at lr 0.001), over
+   phase 4's two tasks. One inner step's gradients of the head and the
+   FiLM leaves under a fixed upstream gradient of the features, kernels
+   against plain versions, per tensor within 2^-4 of its largest value;
+   the launch counters must show A and B in every layer of every extractor
+   forward and #4 and #6 in every layer of every backward (50 a task), and
+   no other kernel; every task's head and FiLM leaves must move; the
+   results must carry ``task_macs_to_personalise``, and the extractor's
+   forward 3.8-5.2 GMACs a frame; task 0 through the plain versions must
+   give the same argmax on 99% of the real query frames; the median and
+   range of the time to personalise and of query frames/s over warm
+   repeats, the peak memory, a ``torch.profiler`` trace of a personalise
+   of 5 inner steps (its idle share read against its untraced time too),
+   and #4 and #6 by launch at the FineTuner's batch of 64 clips.
+9. EfficientNet-B0 FineTuner paths: phase 8's protocol and checks for the
+   README's command (``--feature_extractor efficientnet_b0 --classifier
+   linear``, frozen extractor: the context embedded once, 50 steps on the
+   head) and then with ``--adapt_features`` (the extractor rerun every
+   step, #8's plain-recompute backward), calibrated as phase 6; #8 in all
+   12 stride-1 tails of every extractor forward; the gradients held to
+   phase 7's limits (per tensor 2e-4 in f32, 2^-3 of the norm in bf16).
 
 The line before the last is ``{"kernels": [...]}`` (launches: kernels A and
 B from phase 4, #4 and #6 from phase 5, #7 and #8 from phase 6; #1 and #2
-are on no path and report their launches over phases 4 to 7 together,
+are on no path and report their launches over phases 4 to 9 together,
 which must be 0; their checks and times are phase 3's; ``launches_by_path``
-gives every kernel's launches on each path, ``gemm_ms`` the cuBLAS
-yardstick of A, B, #4 and #6); the
+gives every kernel's launches on each path, phases 8 and 9's paths
+included, ``gemm_ms`` the cuBLAS yardstick of A, B, #4 and #6); the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
 
@@ -183,6 +207,14 @@ BF16_PATH_GRAD_NORM_TOL = 2.0 ** -3
 ARGMAX_AGREEMENT = 0.99
 # warm repeats of one task for the eval paths' median metrics
 PATH_REPEATS = 10
+# warm repeats of one task's personalise and predict on the FineTuner
+# paths: each personalise is 50 inner steps, so fewer repeats
+FT_REPEATS = 3
+# inner steps of the FineTuner personalise that phases 8 and 9 trace
+TRACE_STEPS = 5
+# ViT-B/32's forward MACs a frame at 224 px: the envelope of
+# tests/test_macs_oracle_scale.py (about 4.4 G)
+VIT_B_FRAME_MACS = (3.8e9, 5.2e9)
 
 KERNELS = {
     "fused_qkv_attention": ("orbit_tpu_torch/csrc/fused_qkv_attention.cu",
@@ -550,7 +582,7 @@ def gemm_yardstick(torch, rows: dict, x, qkv, mlp, cot) -> None:
 
 
 def launch_breakdown(torch, fn, label: str, card: str, calls: int = 5,
-                     dtype: str = "bf16") -> None:
+                     dtype: str = "bf16", shape: str = "ViT-B/32 B=256") -> None:
     """``calls`` warm calls of ``fn`` under ``torch.profiler``: each
     launch's device time per call and its share of the call's device
     time, the launches in the order of their time."""
@@ -571,7 +603,7 @@ def launch_breakdown(torch, fn, label: str, card: str, calls: int = 5,
     if total <= 0:
         print(f"  {label} by launch ({card}): the profiler recorded no device time (not measured)")
         return
-    print(f"  {label} by launch, ViT-B/32 B=256 {dtype}, device time a call {total:.4f} ms "
+    print(f"  {label} by launch, {shape} {dtype}, device time a call {total:.4f} ms "
           f"({card}):")
     for key, ms in sorted(times.items(), key=lambda kv: -kv[1]):
         print(f"    {ms:.4f} ms ({100 * ms / total:.1f}%)  {key[:100]}")
@@ -1187,9 +1219,10 @@ def train_path_phase(torch, card: str, workdir: Path, extractor: str = "vit_b_32
     forwards = [0]
     vit_forward = ViT.forward
 
-    def counted_forward(self, x):
-        forwards[0] += 1
-        return vit_forward(self, x)
+    def counted_forward(self, x, film=None):
+        # the MACs counter's forwards run on a meta copy and launch nothing
+        forwards[0] += x.device.type != "meta"
+        return vit_forward(self, x, film)
 
     ViT.forward = counted_forward
     torch.cuda.reset_peak_memory_stats()
@@ -1386,7 +1419,9 @@ def film_train_phase(torch, card: str, workdir: Path) -> dict:
     eff_forward, head_logits = EfficientNet.forward, SingleStepFewShotRecogniser.head_logits
 
     def counted_forward(self, x, film=None, impl=None):
-        forwards[0] += impl != "composed"
+        # neither the calibration's composed forwards nor the MACs counter's
+        # on a meta copy launch a kernel
+        forwards[0] += impl != "composed" and x.device.type != "meta"
         return eff_forward(self, x, film, impl)
 
     def counted_head(self, *a, **kw):
@@ -1423,10 +1458,11 @@ def film_train_phase(torch, card: str, workdir: Path) -> dict:
     return launches
 
 
-def device_breakdown(torch, fn, card: str) -> None:
+def device_breakdown(torch, fn, card: str) -> float:
     """Run ``fn`` (one warm task) under ``torch.profiler`` and print the
     device time by kernel group and the device's idle share (1 - the
-    kernels' summed time over the host's wall time of the region)."""
+    kernels' summed time over the host's wall time of the region); return
+    the kernels' summed time in ms (0 if the trace holds none)."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
@@ -1439,7 +1475,7 @@ def device_breakdown(torch, fn, card: str) -> None:
               ("#4 and #6 second passes (vector gradients)", r"sum_partials"),
               ("A fused_qkv_attention", r"fused_qkv_attention"),
               ("B fused_mlp_block", r"fused_mlp_block"),
-              ("#8 fused_dw_act", r"fused_dw_kernel"),
+              ("#8 fused_dw_act", r"fused_dw_\w*kernel"),
               ("#7 mahalanobis_logits", r"mahalanobis_(partial|finish)"),
               ("linalg.inv (MAGMA LU, swaps, solves)",
                r"getrf|getri|getrs|trsm|laswp|swap_kernel|computecolumn|displace_pointers|"
@@ -1459,7 +1495,10 @@ def device_breakdown(torch, fn, card: str) -> None:
         # kernels and copies only: an operator's own entry repeats the
         # device time of the kernels it launched
         us = evt.self_device_time_total
-        if evt.device_type != torch.autograd.DeviceType.CUDA or us <= 0:
+        # user annotations (``Optimizer.step#Adam.step``) repeat the device
+        # time of the kernels inside them
+        if (evt.device_type != torch.autograd.DeviceType.CUDA or us <= 0
+                or getattr(evt, "is_user_annotation", False)):
             continue
         group = next((g for g, pat in groups if re.search(pat, evt.key)), "other (elementwise, "
                      "reductions, casts)")
@@ -1468,13 +1507,14 @@ def device_breakdown(torch, fn, card: str) -> None:
     busy = sum(totals.values())
     if busy <= 0:
         print(f"  trace ({card}): the profiler recorded no device time (not measured)")
-        return
+        return 0.0
     print(f"  trace of one warm task ({card}): wall {wall_ms:.2f} ms, device busy "
           f"{busy:.2f} ms, idle share {100 * (1 - busy / wall_ms):.1f}%")
     for group, ms in sorted(totals.items(), key=lambda kv: -kv[1]):
         print(f"    {group}: {ms:.3f} ms ({100 * ms / busy:.1f}%)")
     for name, ms in sorted(names.items(), key=lambda kv: -kv[1])[:12]:
         print(f"      {ms:.3f} ms  {name[:110]}")
+    return busy
 
 
 def eval_path_phase(torch, card: str, workdir: Path, label: str, flags: list,
@@ -1651,6 +1691,302 @@ def eval_path_phase(torch, card: str, workdir: Path, label: str, flags: list,
     return launches
 
 
+def finetune_dw_breakdown(torch, card: str, rows: int, steps: int) -> None:
+    """#4 and #6 by launch at the FineTuner's context batch (``rows`` clips
+    of 50 tokens at ViT-B/32's width, bf16). Their grads launch forms the
+    weight gradients beside dx (half of #4's products there, two thirds of
+    #6's), which a FiLM step with the extractor frozen does not read; the
+    bound of those dW products alone is printed beside."""
+    from orbit_tpu_torch.ops import fused_mlp_block_backward, fused_qkv_attention_backward
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    d, s = 768, 50
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+    x, cot = randn(rows, s, d).bfloat16(), randn(rows, s, d).bfloat16()
+    qkv = (randn(d, 3 * d, scale=d ** -0.5).bfloat16(), randn(3 * d, scale=0.02))
+    mlp = (1 + randn(d, scale=0.1), randn(d, scale=0.1),
+           randn(d, 4 * d, scale=d ** -0.5).bfloat16(), randn(4 * d, scale=0.02),
+           randn(4 * d, d, scale=(4 * d) ** -0.5).bfloat16())
+    shape = f"ViT-B/32 B={rows}"
+    launch_breakdown(torch, lambda: fused_qkv_attention_backward(x, *qkv, cot, DEPTH),
+                     "fused_qkv_attention_bwd", card, shape=shape)
+    launch_breakdown(torch, lambda: fused_mlp_block_backward(x, *mlp, cot, ln_eps=1e-5),
+                     "fused_mlp_block_bwd", card, shape=shape)
+    dw_flops = 2 * rows * s * (3 * d * d + 2 * 4 * d * d)
+    print(f"  the dW products of #4 and #6 a layer at B={rows}: {dw_flops / 1e9:.3f} GFLOP, "
+          f"bound {1e3 * dw_flops / PEAK_FLOPS['bfloat16']:.4f} ms; a FiLM personalise runs "
+          f"them {DEPTH} x {steps} times ({card})")
+
+
+def finetuner_phase(torch, card: str, workdir: Path, label: str, flags: list,
+                    per_forward: dict, per_backward: dict | None = None,
+                    calibrate: bool = False) -> dict:
+    """Phases 8 and 9: the port's FineTuner through the multi-step learner
+    (``--mode test --classifier linear``, ``flags`` naming the model, bf16,
+    batch 256, 224 px, the CLI's defaults: 50 Adam steps at lr 0.001) over
+    phase 4's two synthetic tasks, to ``results.json``.
+
+    Before the run, through the kernels and through their plain versions:
+    one inner step's gradients of the task parameters (the head, and with
+    FiLM the FiLM leaves) at their initial values, under the loss's head
+    term and a fixed upstream gradient of the context features (the zero
+    head sends the FiLM leaves none at the first step); and task 0's whole
+    personalise and predict, whose argmax must agree on at least 99% of
+    the real query frames. A ViT is held in bf16, its gradients per tensor
+    to PATH_REL_TOL as in phase 5. An EfficientNet (``calibrate``: its
+    BatchNorm statistics set as in phase 6) is held to phase 7's limits:
+    per tensor F32_PATH_GRAD_TOL and the argmax in f32, which must also see
+    a wrong border planted in #8; BF16_PATH_GRAD_NORM_TOL of the norm in
+    bf16, whose argmax agreement is printed beside the witness's (#8's
+    plain version with its f32 stages in f64). The run must launch each
+    kernel of ``per_forward`` that many times in every extractor forward,
+    and each of ``per_backward`` in every backward of every inner step, and
+    no other kernel; every task's head (and FiLM leaves) must move, and the
+    results must carry ``task_macs_to_personalise``. Then task 0 repeated
+    warm for the metrics, and a personalise of TRACE_STEPS inner steps
+    traced; on a ViT, #4 and #6 by launch at the FineTuner's batch."""
+    import numpy as np
+
+    from orbit_tpu_torch.data.episodes import pad_episode
+    from orbit_tpu_torch.kernels import build as kbuild
+    from orbit_tpu_torch.learners.multi_step import MultiStepLearner, build_finetune_fns
+    from orbit_tpu_torch.models import heads as heads_lib
+    from orbit_tpu_torch.models.backbones.efficientnet import calibrate_batchnorm
+    from orbit_tpu_torch.utils.args import parse_args
+    from orbit_tpu_torch.utils.ops_counter import flops_of, meta_copy
+    from orbit_tpu_torch.utils.optim import cross_entropy
+
+    batch = 256
+    per_backward = per_backward or {}
+    started, marks = time.perf_counter(), []
+    args = parse_args("multi-step-learner", [
+        "--data_path", str(workdir / "data"), "--checkpoint_dir", str(workdir / "ckpt"),
+        "--mode", "test", *flags, "--classifier", "linear", "--compute_dtype", "bfloat16",
+        "--batch_size", str(batch), "--frame_size", "224", "--num_test_tasks", "1",
+        "--seed", str(SEED)])
+    steps = args.personalize_num_grad_steps
+    tasks = synthetic_tasks()
+    eps = [pad_episode(t) for t in tasks]
+    after_init = None
+    if calibrate:
+        frames = torch.from_numpy(np.concatenate(
+            [eps[0].context_clips[:, 0]] + [v[:40] for v in eps[0].video_frames]))
+
+        def after_init(rec):
+            calibrate_batchnorm(rec.extractor,
+                                rec._maybe_normalize(frames.to(rec.pixel_mean.device)))
+    learner = MultiStepLearner(args, test_queue=TaskQueue(tasks), after_init=after_init)
+    rec, dev = learner.recogniser, learner.device
+    film = rec.adapt_features
+    marks.append(("set-up", time.perf_counter()))
+
+    ep = eps[0]
+    n_ctx = int(ep.context_mask.sum())
+    ctx = tuple(torch.from_numpy(a).to(dev) for a in (
+        ep.context_clips, ep.context_labels.astype(np.int64), ep.context_mask, ep.class_mask))
+    upstream = torch.randn(n_ctx, rec.output_size, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(SEED))
+
+    query = torch.from_numpy(np.concatenate(ep.video_frames)[:, None]).to(dev)
+    real = np.concatenate([m > 0 for m in ep.video_masks])
+    present = ctx[3].bool()
+
+    @contextlib.contextmanager
+    def route(dtype_name, impl, dw_plain=None):
+        """The model in ``dtype_name`` through ``impl``, #8's plain version
+        replaced by ``dw_plain``; the parameters stay as stored (f32 before
+        the run: bf16 compute casts them at each use)."""
+        rec.dtype = rec.extractor.dtype = getattr(torch, dtype_name)
+        rec.impl = impl
+        try:
+            with dw_plain_as(dw_plain):
+                yield
+        finally:
+            rec.dtype = rec.extractor.dtype = learner.dtype
+            rec.impl = None
+
+    def first_step_grads(*how):
+        with route(*how):
+            tp = rec.init_task_params(ctx[3].shape[0])
+            feats = rec.embed_clips(ctx[0][:n_ctx], with_grad=True, film=tp.get("film"))
+            logits = heads_lib.predict_linear(tp["head"], feats, logit_scale=rec.logit_scale,
+                                              class_mask=ctx[3])
+            loss = (cross_entropy(logits, ctx[1][:n_ctx], ctx[2][:n_ctx], reduction="sum")
+                    / n_ctx + (feats * upstream).sum())
+            return list(torch.autograd.grad(loss, rec.task_leaves(tp)))
+
+    def task0_logits(*how):
+        with route(*how):
+            return learner.predict_fn(learner.personalise_fn(*ctx), query, ctx[3])[:, present]
+
+    # (dtype, gradient limit by "tensor" or "norm", limit, argmax held). The
+    # ViT as phase 5, in bf16. The EfficientNet as phase 7: its gradients
+    # per tensor in f32 and over the norm in bf16; its argmax held in f32,
+    # where the two routes differ in summation order only. In bf16 a change
+    # of f32 rounding alone (the witness: #8's plain version with its f32
+    # stages in f64) moves 1-2% of task 0's query argmax after 50 Adam
+    # steps (PERF.md §6), so there the agreement is printed beside the
+    # witness's; the planted fault (a wrong border in #8) must show in the
+    # f32 gradients.
+    checks = ([("bfloat16", "tensor", PATH_REL_TOL, True)] if not calibrate else
+              [("float32", "tensor", F32_PATH_GRAD_TOL, True),
+               ("bfloat16", "norm", BF16_PATH_GRAD_NORM_TOL, False)])
+    wide = functools.partial(dw_variant, wide=True)
+    fault = functools.partial(dw_variant, raw_border=True)
+    read = []
+    for dtype_name, kind, limit, held in checks:
+        kern = first_step_grads(dtype_name, None)
+        plain = first_step_grads(dtype_name, "reference")
+        if kind == "tensor":
+            compare_grads(kern, plain, limit, f"{label} {dtype_name} first-step gradients")
+        elif norm_rel(kern, plain) > limit:
+            raise AssertionError(f"{label} {dtype_name} first-step gradients differ by "
+                                 f"{norm_rel(kern, plain):.3e} of the norm, more than {limit}")
+        line = (f"{dtype_name}: first-step gradients of {len(kern)} task tensors under a "
+                f"fixed upstream gradient of the features, kernels vs plain, largest per-tensor difference over the tensor's largest value "
+                f"{worst_rel(kern, plain):.3e}, over the norm {norm_rel(kern, plain):.3e} "
+                f"(limit {limit} by {kind})")
+        if calibrate and dtype_name == "float32":
+            # with FiLM the gradient runs back through #8, as in phase 7;
+            # frozen, only the head's gradient, through the features, reads it
+            planted = worst_rel(first_step_grads(dtype_name, "reference", fault), plain)
+            if film and planted <= limit:
+                raise AssertionError("the f32 gradient check does not see a wrong border in #8")
+            line += f", a wrong border in #8 {planted:.3e}"
+        del kern, plain
+        logits = {"kernels": task0_logits(dtype_name, None),
+                  "plain": task0_logits(dtype_name, "reference")}
+        if calibrate and not held:
+            logits["witness"] = task0_logits(dtype_name, "reference", wide)
+        if not torch.isfinite(logits["kernels"]).all():
+            raise AssertionError(f"{label}: non-finite logits on the kernel path")
+        top = {k: v.argmax(-1).cpu().numpy() for k, v in logits.items()}
+        agree = {k: float((top[k] == top["plain"])[real].mean()) for k in top if k != "plain"}
+        line += (f"; task 0 personalise and predict, logits max rel "
+                 f"{worst_rel([logits['kernels']], [logits['plain']]):.3e}, argmax agreement "
+                 f"with the plain route on {int(real.sum())} real query frames: "
+                 + ", ".join(f"{k} {v:.4f}" for k, v in agree.items())
+                 + (f" (held to {ARGMAX_AGREEMENT})" if held else " (printed)"))
+        read.append(line)
+        if held and agree["kernels"] < ARGMAX_AGREEMENT:
+            raise AssertionError(f"{label} {dtype_name} argmax agreement "
+                                 f"{agree['kernels']:.4f} < {ARGMAX_AGREEMENT}")
+        del logits
+
+    marks.append(("checks before the run", time.perf_counter()))
+    # the learner's run, every personalise kept
+    kept = []
+    personalise = learner.personalise_fn
+
+    def kept_personalise(*a):
+        kept.append(personalise(*a))
+        return kept[-1]
+    learner.personalise_fn = kept_personalise
+    forwards0 = rec.extractor.forward_calls
+    torch.cuda.reset_peak_memory_stats()
+    kbuild.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        learner.run()
+        torch.cuda.synchronize()
+    finally:
+        learner.personalise_fn = personalise
+    wall = time.perf_counter() - t0
+    launches = dict(kbuild.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    forwards = rec.extractor.forward_calls - forwards0
+
+    # one untimed personalise of task 0, then each task's
+    runs = [eps[0]] + eps
+    if len(kept) != len(runs):
+        raise AssertionError(f"{len(kept)} personalise calls, expected {len(runs)}")
+    passes = [math.ceil(e.context_clips.shape[0] / min(batch, e.context_clips.shape[0]))
+              * steps if film else math.ceil(e.context_clips.shape[0] / batch) for e in runs]
+    backwards = sum(passes) if film else 0
+    query_chunks = sum(math.ceil(v.shape[0] / batch) for e in eps for v in e.video_frames)
+    if forwards != sum(passes) + query_chunks:
+        raise AssertionError(f"{forwards} extractor forwards, expected {sum(passes)} in the "
+                             f"personalise calls and {query_chunks} in the predictions")
+    for name in KERNELS:
+        want = per_forward.get(name, 0) * forwards + per_backward.get(name, 0) * backwards
+        if launches[name] != want:
+            raise AssertionError(f"{name}: {launches[name]} launches, expected {want} "
+                                 f"({forwards} extractor forwards, {backwards} backwards)")
+    for tp in kept:
+        if not float(tp["head"]["weight"].detach().abs().max()) > 0:
+            raise AssertionError("a personalise left the head at zero")
+        if film and not max(float((v.detach() - rec.extractor.get_parameter(k).float())
+                                  .abs().max()) for k, v in tp["film"].items()) > 0:
+            raise AssertionError("a personalise left the FiLM leaves where they started")
+    saved = json.loads(Path(learner.test_evaluator.json_results_path).read_text())
+    macs = [t["task_macs_to_personalise"] for user in sorted(saved) for t in saved[user]]
+    if len(macs) != len(tasks) or not all(m > 0 for m in macs):
+        raise AssertionError(f"results.json MACs to personalise {macs}")
+    frame_macs = flops_of(meta_copy(rec).embed_clips, ctx[0][:n_ctx]) / 2.0 / n_ctx
+    low, high = VIT_B_FRAME_MACS
+    if "vit_b_32" in args.feature_extractor and not low < frame_macs < high:
+        raise AssertionError(f"{frame_macs / 1e9:.3f} GMACs a frame, off "
+                             f"{low / 1e9}-{high / 1e9} G")
+    counts = ", ".join(f"{n} {launches[n]}" for n in KERNELS if launches[n])
+    timings = learner.test_timings
+    print(f"{label} (card: {card}): 224px bf16, batch {batch}, {len(tasks)} tasks, {steps} "
+          f"inner steps, {len(kept)} personalise calls, {forwards} extractor forwards, "
+          f"{backwards} backwards, wall {wall:.2f} s; launches: {counts}")
+    for line in read:
+        print(f"  {line}")
+    print(f"  MACs to personalise per task (results.json) {macs}; extractor forward "
+          f"{frame_macs / 1e9:.4f} GMACs a frame; peak memory "
+          f"{peak / 2**30:.2f} GiB ({card})")
+    print(f"  the protocol's reading: time to personalise "
+          f"{1e3 * statistics.mean(timings['personalise']):.2f} ms per task, query frames/s "
+          f"{1.0 / statistics.mean(timings['inference_per_frame']):.1f} ({card})")
+
+    marks.append(("the run and its checks", time.perf_counter()))
+    seconds = {"personalise": [], "predict": []}
+    for _ in range(FT_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tp = learner.personalise_fn(*ctx)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        learner.predict_fn(tp, query, ctx[3]).cpu()
+        seconds["personalise"].append(1e3 * (t1 - t0))
+        seconds["predict"].append(time.perf_counter() - t1)
+    fps = [int(real.sum()) / t for t in seconds["predict"]]
+    pers = seconds["personalise"]
+    print(f"  task 0 repeated {FT_REPEATS}x, warm: time to personalise median "
+          f"{statistics.median(pers):.2f} ms ({min(pers):.2f}-{max(pers):.2f}); query frames/s "
+          f"median {statistics.median(fps):.1f} ({min(fps):.1f}-{max(fps):.1f}) ({card})")
+    # the trace: a personalise of TRACE_STEPS inner steps (the profiler's
+    # own work on a 50-step personalise's 10^5 launches takes tens of
+    # seconds), whose untraced time is taken first; the profiler's host work
+    # on every launch stretches the traced wall, so the idle share is also
+    # read against the untraced time
+    short = build_finetune_fns(rec, args, num_grad_steps=TRACE_STEPS)[0]
+    untraced = []
+    for _ in range(FT_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        short(*ctx)
+        torch.cuda.synchronize()
+        untraced.append(1e3 * (time.perf_counter() - t0))
+    print(f"  a personalise of {TRACE_STEPS} inner steps, traced next: untraced median "
+          f"{statistics.median(untraced):.2f} ms ({min(untraced):.2f}-{max(untraced):.2f})")
+    busy = device_breakdown(torch, lambda: short(*ctx), card)
+    if busy > 0:
+        print(f"  device busy {busy:.2f} ms of the untraced {statistics.median(untraced):.2f} "
+              f"ms: idle share {100 * (1 - busy / statistics.median(untraced)):.1f}% ({card})")
+    if "fused_mlp_block_bwd" in per_backward:
+        finetune_dw_breakdown(torch, card, ctx[0].shape[0], steps)
+    marks.append(("repeats and traces", time.perf_counter()))
+    print("  phase time: " + ", ".join(
+        f"{label} {t - before:.1f} s"
+        for (label, t), before in zip(marks, [started] + [t for _, t in marks])))
+    return launches
+
+
 def main(argv=None) -> int:
     global SEED
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one GPU")
@@ -1706,8 +2042,10 @@ def main(argv=None) -> int:
     rows["mahalanobis_logits"] = mahalanobis_kernel_phase(torch, card)
     rows.update(attention_kernel_phase(torch, card))
 
-    # phases 4 to 7: the ViT eval path, the ViT train path, the SimpleCNAPs
-    # path and the SimpleCNAPs FiLM train path, each read alone
+    # phases 4 to 9: the ViT eval path, the ViT train path, the SimpleCNAPs
+    # path, the SimpleCNAPs FiLM train path, the ViT-B/32-CLIP FineTuner with
+    # FiLM and the EfficientNet-B0 FineTuner frozen and with FiLM, each read
+    # alone
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         paths = {
             "eval": eval_path_phase(
@@ -1721,14 +2059,31 @@ def main(argv=None) -> int:
                 ["--feature_extractor", "efficientnet_b0", "--adapt_features",
                  "--classifier", "mahalanobis"],
                 {"fused_dw_act": B0_DW_PER_FORWARD}, calibrate=True),
-            "film_train": film_train_phase(torch, card, Path(tmp) / "film_train")}
+            "film_train": film_train_phase(torch, card, Path(tmp) / "film_train"),
+            "finetune_vit_film": finetuner_phase(
+                torch, card, Path(tmp) / "finetune_vit", "ViT-B/32-CLIP FineTuner+FiLM path",
+                ["--feature_extractor", "vit_b_32_clip", "--adapt_features"],
+                {"fused_qkv_attention": DEPTH, "fused_mlp_block": DEPTH},
+                {"fused_qkv_attention_bwd": DEPTH, "fused_mlp_block_bwd": DEPTH}),
+            "finetune_b0": finetuner_phase(
+                torch, card, Path(tmp) / "finetune_b0", "EfficientNet-B0 FineTuner path",
+                ["--feature_extractor", "efficientnet_b0"],
+                {"fused_dw_act": B0_DW_PER_FORWARD}, calibrate=True),
+            "finetune_b0_film": finetuner_phase(
+                torch, card, Path(tmp) / "finetune_b0_film",
+                "EfficientNet-B0 FineTuner+FiLM path",
+                ["--feature_extractor", "efficientnet_b0", "--adapt_features"],
+                {"fused_dw_act": B0_DW_PER_FORWARD}, calibrate=True)}
     # the kernels each path must launch; a kernel's row reports the first
     # path that launches it
     path_kernels = {"eval": ["fused_qkv_attention", "fused_mlp_block"],
                     "train": ["fused_qkv_attention", "fused_mlp_block",
                               "fused_qkv_attention_bwd", "fused_mlp_block_bwd"],
                     "simplecnaps": ["mahalanobis_logits", "fused_dw_act"],
-                    "film_train": ["mahalanobis_logits", "fused_dw_act"]}
+                    "film_train": ["mahalanobis_logits", "fused_dw_act"],
+                    "finetune_vit_film": ["fused_qkv_attention", "fused_mlp_block",
+                                          "fused_qkv_attention_bwd", "fused_mlp_block_bwd"],
+                    "finetune_b0": ["fused_dw_act"], "finetune_b0_film": ["fused_dw_act"]}
     path_of = {}
     for path, names in path_kernels.items():
         unused = [n for n in names if paths[path][n] < 1]

@@ -20,17 +20,18 @@ recogniser. Differences from the JAX learner:
 - one untimed personalise before the first timed region builds and loads
   the kernels (and initialises cuBLAS), where the JAX learner ran its
   per-bucket compile warm-up;
-- the MACs counter is not ported yet: results carry no
-  ``task_macs_to_personalise`` and the log says so.
+- the MACs to personalise are counted on a meta copy of the recogniser at
+  the task's real context rows (``utils/ops_counter.py``), where the JAX
+  learner interpolates XLA cost analyses.
 Not ported yet, and refused with an error: ``--data_parallel``/
 ``--task_parallel`` > 1, ``--profile_dir``, ``--pretrained_extractor_path``,
-the ``linear`` head, FiLM (``--adapt_features``) on the ViTs, and in the
-train modes ``--learn_extractor`` on an EfficientNet (masked BatchNorm batch
+the ``linear`` head (the multi-step learner's), and in the train modes
+``--learn_extractor`` on an EfficientNet (masked BatchNorm batch
 statistics are a later slice). Every mode runs CNAPs (``--adapt_features
 --classifier versa``) and SimpleCNAPs (``--adapt_features --classifier
-mahalanobis``) on the EfficientNets: meta-training updates the set
-encoder, the FiLM generator and the Versa processors with the extractor
-frozen and its BatchNorms in eval mode, with or without LITE.
+mahalanobis``) on every backbone: meta-training updates the set encoder,
+the FiLM generator and the Versa processors with the extractor frozen (and
+an EfficientNet's BatchNorms in eval mode), with or without LITE.
 """
 from __future__ import annotations
 
@@ -54,24 +55,22 @@ from orbit_tpu_torch.utils.checkpoint import load_train_state, save_train_state
 from orbit_tpu_torch.utils.eval_metrics import (TestEvaluator, TrainEvaluator,
                                                 ValidationEvaluator)
 from orbit_tpu_torch.utils.logging import get_log_files, print_and_log, stats_to_str
+from orbit_tpu_torch.utils.ops_counter import meta_copy
 from orbit_tpu_torch.utils.optim import (get_curr_learning_rates, init_optimizer,
                                          make_lr_schedule, set_learning_rate)
 
-MACS_NOT_PORTED = "not counted (the PyTorch port has no MACs counter yet)"
 
-
-def check_ported(args) -> None:
-    """Refuse, with a clear error, the options this port does not run yet."""
+def check_ported(args, heads=tuple(CONFIGURE)) -> None:
+    """Refuse, with a clear error, the options this port does not run yet
+    (``heads``: the classifiers the learner takes)."""
     refused = []
     if getattr(args, "data_parallel", 1) > 1:
         refused.append(f"--data_parallel {args.data_parallel}")
     if getattr(args, "task_parallel", 1) > 1:
         refused.append(f"--task_parallel {args.task_parallel}")
-    if args.classifier not in CONFIGURE:
+    if args.classifier not in heads:
         refused.append(f"--classifier {args.classifier}")
     effnet = args.feature_extractor.startswith("efficientnet")
-    if args.adapt_features and not effnet:
-        refused.append(f"--adapt_features on {args.feature_extractor}")
     if "train" in args.mode and args.learn_extractor and effnet:
         refused.append(f"--learn_extractor on {args.feature_extractor} (a later slice: "
                        f"masked BatchNorm batch statistics)")
@@ -210,7 +209,7 @@ class SingleStepLearner:
         self.train_evaluator = TrainEvaluator(self.evaluation_metrics)
         self.validation_evaluator = ValidationEvaluator(self.evaluation_metrics)
         self.test_evaluator = TestEvaluator(
-            self.evaluation_metrics, self.checkpoint_dir, with_ops_counter=False)
+            self.evaluation_metrics, self.checkpoint_dir, with_ops_counter=True)
 
     # ------------------------------------------------------------- run ----
     def run(self):
@@ -344,15 +343,17 @@ class SingleStepLearner:
         else:
             print_and_log(self.logfile, "warning: saved model path could not be "
                                         "found; using original param initialisation.")
+        evaluator = self.test_evaluator
+        evaluator.set_base_params(self.recogniser)
         if self.dtype == torch.bfloat16:
             cast_extractor_params(self.recogniser.extractor)
-        print_and_log(self.logfile, f"MACs to personalise: {MACS_NOT_PORTED}")
 
-        evaluator = self.test_evaluator
         self._run_eval_protocol(self.test_queue, evaluator, self.args.num_test_tasks,
                                 self.args.test_set, with_timing=True)
 
         stats_user, stats_obj, stats_task, stats_video = evaluator.get_mean_stats()
+        mean_macs, std_macs, mean_params, params_breakdown = \
+            evaluator.get_mean_ops_counter_stats()
         p_mean, p_std, i_mean, i_std = evaluator.get_mean_times()
         print_and_log(self.logfile, (
             f"{self.args.test_set} [{used or path}]\n"
@@ -362,7 +363,8 @@ class SingleStepLearner:
             f"Frame accuracy (averaged per video): {stats_to_str(stats_video)}\n"
             f"Time to personalise (averaged per task) {p_mean} ({p_std})\n"
             f"Inference time per frame (averaged per task): {i_mean} ({i_std})\n"
-            f"MACs to personalise (averaged per task): {MACS_NOT_PORTED}\n"))
+            f"MACs to personalise (averaged per task): {mean_macs} ({std_macs})\n"
+            f"Number of params: {mean_params} ({params_breakdown})\n"))
         # seconds, per task: personalise, and inference per frame
         self.test_timings = {
             "personalise": [t for u in evaluator.all_personalise_times for t in u],
@@ -380,6 +382,9 @@ class SingleStepLearner:
         args = self.args
         num_context, num_target = [], []
         num_total_tasks = queue.num_local_tasks()
+        ops_counter = getattr(evaluator, "ops_counter", None)
+        if ops_counter is not None:
+            macs_personalise, _ = build_eval_fns(meta_copy(self.recogniser))
 
         def prepare(task_dict):
             # pad + pinned H2D for task t+1 on the prefetch thread while the
@@ -413,6 +418,12 @@ class SingleStepLearner:
             if with_timing:
                 self._sync()
                 evaluator.log_time(time.perf_counter() - t1, "personalise")
+            if ops_counter is not None:
+                # charged at the task's real context rows (reference
+                # ops_counter.py:79-85); padding comes after them
+                n = int(ep.context_mask.sum())
+                ops_counter.compute_macs("personalise", macs_personalise,
+                                         *(t[:n] for t in ctx[:3]), ctx[3])
 
             class_mask = ctx[3]
             num_target_clips = 0
@@ -462,6 +473,9 @@ class SingleStepLearner:
             evaluator.set_current_user(task_dict["task_id"])
             _, _, _, video_stats = evaluator.get_mean_stats(current_user=True)
             extra = ""
+            if getattr(evaluator, "ops_counter", None) is not None:
+                macs_mean, _, _, _ = evaluator.get_mean_ops_counter_stats(current_user=True)
+                extra = f", avg MACs to personalise/task: {macs_mean}"
             if getattr(queue.loader, "_cache_cap", 0):
                 hits, misses = queue.loader.cache_stats()
                 total = hits + misses

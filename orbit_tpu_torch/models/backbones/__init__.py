@@ -2,9 +2,8 @@
 
 ``create_feature_extractor(name)`` returns ``(module, output_size,
 film_spec)``: ``film_spec`` lists ``(param_path, size)`` for each FiLM-able
-norm scale/bias leaf. The EfficientNets carry theirs; FiLM on the ViTs is
-not ported yet, so their spec is empty and the recogniser refuses
-``adapt_features`` on them.
+norm scale/bias leaf (the EfficientNets' BatchNorms, the ViTs'
+LayerNorms), its path the dotted parameter name split at the dots.
 """
 from __future__ import annotations
 
@@ -23,6 +22,6 @@ def create_feature_extractor(name: str, frame_size: int = 224,
     if name.startswith("efficientnet"):
         return create_efficientnet(name, dtype=dtype)
     if name.startswith("vit"):
-        return (*create_vit(name, frame_size=frame_size, dtype=dtype), [])
+        return create_vit(name, frame_size=frame_size, dtype=dtype)
     raise ValueError(f"Invalid feature_extractor name: {name} "
                      f"(choices: {FEATURE_EXTRACTORS})")

@@ -217,7 +217,8 @@ class EfficientNet(nn.Module):
     the compute dtype, output (N, head_chs) f32.
 
     ``impl`` routes the stride-1 depthwise tails: None (the op, by
-    device), "reference" (the op's plain version) or "composed" (unfused
+    device), "reference" or "autograd" (the op's plain version, with its
+    recomputing backward or as plain autograd ops) or "composed" (unfused
     BatchNorms around a grouped conv); ``forward(impl=...)`` overrides it
     for one call. ``forward_calls`` counts forwards (one per
     feature-extraction chunk)."""

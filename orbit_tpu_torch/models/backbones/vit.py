@@ -13,6 +13,16 @@ layer runs the two kernel ops, :func:`fused_qkv_attention` (kernel A) and
 :func:`fused_mlp_block` (kernel B), whose backward kernels run when
 autograd records. The class token after the final norm comes out as f32.
 
+FiLM (orbit_tpu vit.py:171-198, reference model/film.py:57-66):
+``forward(x, film)`` takes a dict of overrides keyed by the dotted
+parameter names of :func:`vit_film_spec` (``blocks.3.norm1.scale``,
+``norm.bias``, ...) for that call only: norm1's values go into the
+LayerNorm before kernel A, norm2's into kernel B as ``ln_scale`` and
+``ln_bias`` (whose backward kernel #6 returns their gradients), the final
+norm's into the last LayerNorm. Each value is rounded to its parameter's
+dtype first, as ``orbit_tpu.models.film.apply_film`` casts a value to its
+leaf's dtype. CLIP's ``norm_pre`` is not tagged, as in the JAX spec.
+
 Parameters are trainable f32 masters, as Flax keeps them: under bf16
 compute the casts sit inside the forward, so the gradients arrive in f32.
 Eval may store them in bf16 (``precision.cast_extractor_params``).
@@ -25,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from orbit_tpu_torch.models.backbones.masked_bn import Film
 from orbit_tpu_torch.ops.mlp_block import fused_mlp_block
 from orbit_tpu_torch.ops.tiny_attention import fused_qkv_attention
 
@@ -76,22 +87,33 @@ class ConvParams(nn.Module):
 
 
 class LnParams(nn.Module):
-    """``scale`` and ``bias`` (dim,), as Flax's LayerNorm stores them."""
+    """``scale`` and ``bias`` (dim,), as Flax's LayerNorm stores them;
+    ``path`` is the module's dotted name in the extractor, the prefix of
+    its FiLM keys (set by :class:`ViT`)."""
 
     def __init__(self, dim: int):
         super().__init__()
         self.scale = _param(dim)
         self.bias = _param(dim)
+        self.path = ""
 
     def reset_parameters(self, g: torch.Generator = None):
         self.scale.data.fill_(1.0)
         self.bias.data.zero_()
 
-    def forward(self, x: torch.Tensor, eps: float, dtype) -> torch.Tensor:
+    def affine(self, film: Film = None):
+        """(scale, bias) with the FiLM overrides applied, each in its
+        parameter's dtype."""
+        if not film:
+            return self.scale, self.bias
+        return (film.get(f"{self.path}.scale", self.scale).to(self.scale.dtype),
+                film.get(f"{self.path}.bias", self.bias).to(self.bias.dtype))
+
+    def forward(self, x: torch.Tensor, eps: float, dtype, film: Film = None) -> torch.Tensor:
         """f32 statistics and affine (Flax promotes to f32), rounded to dtype."""
-        d = x.shape[-1]
-        return F.layer_norm(x.float(), (d,), self.scale.float(),
-                            self.bias.float(), eps).to(dtype)
+        scale, bias = self.affine(film)
+        return F.layer_norm(x.float(), (x.shape[-1],), scale.float(), bias.float(),
+                            eps).to(dtype)
 
 
 class Attention(nn.Module):
@@ -124,11 +146,11 @@ class EncoderBlock(nn.Module):
         self.norm2 = LnParams(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, x: torch.Tensor, dtype, impl=None) -> torch.Tensor:
-        h = self.norm1(x, self.ln_eps, dtype)
+    def forward(self, x: torch.Tensor, dtype, impl=None, film: Film = None) -> torch.Tensor:
+        h = self.norm1(x, self.ln_eps, dtype, film)
         x = x + self.attn(h, dtype, impl)
         return fused_mlp_block(
-            x.to(dtype), self.norm2.scale, self.norm2.bias,
+            x.to(dtype), *self.norm2.affine(film),
             self.mlp.fc1.kernel, self.mlp.fc1.bias,
             self.mlp.fc2.kernel, self.mlp.fc2.bias, ln_eps=self.ln_eps,
             impl=impl)
@@ -141,7 +163,8 @@ class ViT(nn.Module):
     ``frame_size`` sets the number of patches in ``pos_embed`` (49 at
     224 px, 4 at 84 px: the valid 32-px patches), as the Flax module sizes
     it at init. ``forward_calls`` counts forwards (one per
-    feature-extraction chunk)."""
+    feature-extraction chunk). ``forward(x, film)`` applies FiLM
+    overrides (module docstring)."""
 
     def __init__(self, *, patch_size: int = 32, dim: int = 768, depth: int = 12,
                  num_heads: int = 12, mlp_ratio: float = 4.0,
@@ -159,8 +182,11 @@ class ViT(nn.Module):
         self.blocks = nn.ModuleList(
             EncoderBlock(dim, num_heads, mlp_ratio, ln_eps) for _ in range(depth))
         self.norm = LnParams(dim)
-        self.impl = None  # kernel-op impl: None (by device) or "reference"
+        self.impl = None  # kernel-op impl: None (by device), "reference" or "autograd"
         self.forward_calls = 0
+        for name, module in self.named_modules():
+            if isinstance(module, LnParams):
+                module.path = name
 
     @torch.no_grad()
     def reset_parameters(self, g: torch.Generator):
@@ -182,7 +208,7 @@ class ViT(nn.Module):
         x = x.reshape(n, gh, p, gw, p, c).permute(0, 1, 3, 2, 4, 5)
         return x.reshape(n, gh * gw, p * p * c)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, film: Film = None) -> torch.Tensor:
         self.forward_calls += 1
         dt = self.dtype
         n = x.shape[0]
@@ -197,17 +223,34 @@ class ViT(nn.Module):
         if self.pre_norm:
             x = self.norm_pre(x, self.ln_eps, dt)
         for block in self.blocks:
-            x = block(x, dt, self.impl)
-        x = self.norm(x, self.ln_eps, dt)
+            x = block(x, dt, self.impl, film)
+        x = self.norm(x, self.ln_eps, dt, film)
         return x[:, 0].float()
 
 
+def vit_film_spec(depth: int, dim: int):
+    """FiLM-able LayerNorm scale/bias leaves (orbit_tpu vit.py:171-186):
+    each block's norm1 and norm2 and the final norm; ``norm_pre`` (CLIP) is
+    not tagged. The paths are the port's parameter names
+    (``("blocks", "3", "norm1", "scale")``), the JAX spec's
+    ``("blocks_3", "norm1", "scale")`` with the block index a module of its
+    own; both sort in the same order and give the FiLM generator the same
+    leaf tags (``blocks_3_norm1_scale``)."""
+    spec = []
+    for i in range(depth):
+        for ln in ("norm1", "norm2"):
+            spec += [(("blocks", str(i), ln, "scale"), dim),
+                     (("blocks", str(i), ln, "bias"), dim)]
+    return spec + [(("norm", "scale"), dim), (("norm", "bias"), dim)]
+
+
 def create_vit(name: str, frame_size: int = 224, dtype=torch.float32):
-    """name -> (module, output size), parameters not yet initialised."""
+    """name -> (module, output size, FiLM spec), parameters not yet
+    initialised."""
     if name not in VIT_CONFIGS:
         raise ValueError(f"Unknown ViT variant: {name}")
     dim, depth, heads, pre_norm, eps = VIT_CONFIGS[name]
     module = ViT(patch_size=32, dim=dim, depth=depth, num_heads=heads,
                  pre_norm=pre_norm, ln_eps=eps, frame_size=frame_size,
                  dtype=dtype)
-    return module, dim
+    return module, dim, vit_film_spec(depth, dim)

@@ -2,10 +2,11 @@
 checkpoint files.
 
 :func:`from_jax_variables` takes the ``variables`` of an
-``orbit_tpu.models.recognisers.SingleStepFewShotRecogniser`` with a ViT
-extractor, as nested dicts of numpy arrays (``jax.tree_util.tree_map(
-np.asarray, variables)``), and returns the state dict of
-:class:`orbit_tpu_torch.models.recognisers.SingleStepFewShotRecogniser`.
+``orbit_tpu.models.recognisers`` recogniser (single- or multi-step, ViT or
+EfficientNet extractor, with or without the set encoder and FiLM
+generator), as nested dicts of numpy arrays (``jax.tree_util.tree_map(
+np.asarray, variables)``), and returns the state dict of the port's
+recogniser of the same kind.
 The port keeps the Flax names and layouts, so the mapping is a renaming
 (``blocks_3/attn/qkv/kernel`` -> ``extractor.blocks.3.attn.qkv.kernel``).
 The depth comes from the tree, so a depth-reduced ViT maps as well, and so
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from orbit_tpu_torch.models.backbones.efficientnet import create_efficientnet
+from orbit_tpu_torch.models.backbones.vit import vit_film_spec
 from orbit_tpu_torch.models.film import FilmParameterGenerator
 from orbit_tpu_torch.models.heads import VersaProcessors
 from orbit_tpu_torch.models.set_encoder import SetEncoder
@@ -52,16 +54,19 @@ def _expected_vit_leaves(flat: Dict[str, np.ndarray]):
     """The leaf paths a ViT extractor of the tree's depth (and pre-norm)
     must have, under ``params/extractor``."""
     ex = "params/extractor"
-    depth = 1 + max((int(m.group(1)) for p in flat
-                     if (m := re.match(rf"{ex}/blocks_(\d+)/", p))), default=-1)
     leaves = [f"{ex}/patch_embed/kernel", f"{ex}/patch_embed/bias",
               f"{ex}/cls_token", f"{ex}/pos_embed",
               f"{ex}/norm/scale", f"{ex}/norm/bias"]
     if any(p.startswith(f"{ex}/norm_pre/") for p in flat):
         leaves += [f"{ex}/norm_pre/scale", f"{ex}/norm_pre/bias"]
-    for i in range(depth):
+    for i in range(_vit_depth(flat)):
         leaves += [f"{ex}/blocks_{i}/{leaf}" for leaf in _BLOCK_LEAVES]
     return leaves
+
+
+def _vit_depth(flat: Dict[str, np.ndarray]) -> int:
+    return 1 + max((int(m.group(1)) for p in flat
+                    if (m := re.match(r"params/extractor/blocks_(\d+)/", p))), default=-1)
 
 
 def _port_key(path: str) -> str:
@@ -100,18 +105,16 @@ def _expected_keys(flat: Dict[str, np.ndarray], effnet: str | None):
     imply, from instances of those modules (no weights drawn)."""
     components = {p.split("/")[1] for p in flat if p.startswith("params/")}
     keys = set()
-    spec = []
     if effnet:
         module, _, spec = create_efficientnet(effnet)
         keys |= {f"extractor.{k}" for k in module.state_dict()}
+    else:
+        spec = vit_film_spec(_vit_depth(flat), flat["params/extractor/norm/scale"].shape[0])
     for name, make in (("set_encoder", SetEncoder),
                        ("film_generator", lambda: FilmParameterGenerator(spec)),
                        ("versa", lambda: VersaProcessors(
                            flat["params/versa/weight_processor/linear1/kernel"].shape[0]))):
         if name in components:
-            if name == "film_generator" and not spec:
-                raise ValueError("a FiLM generator needs an EfficientNet extractor "
-                                 "(FiLM on the ViTs is not ported yet)")
             keys |= {f"{name}.{k}" for k in make().state_dict()}
     return keys
 

@@ -1,6 +1,9 @@
 """Few-shot heads on padded episodes (counterpart of ``orbit_tpu/models/heads.py``):
 ``proto`` and ``proto_cosine`` (reference: model/classifier_heads.py:182-263),
-``versa`` (CNAPs, :121-180) and ``mahalanobis`` (SimpleCNAPs, :265-368).
+``versa`` (CNAPs, :121-180), ``mahalanobis`` (SimpleCNAPs, :265-368) and
+the FineTuner's ``linear`` head (:53-60), which is trained by the
+multi-step learner rather than configured (:func:`init_linear_head`,
+:func:`predict_linear`).
 
 A ``sample_mask (N,)`` marks valid context rows and a ``class_mask (C,)``
 real classes; padded classes get -1e30 logits. Every configure function
@@ -47,6 +50,20 @@ def _mask_logits(logits: torch.Tensor, class_mask: Optional[torch.Tensor]):
         return logits
     return torch.where(class_mask.bool()[None, :], logits,
                        torch.full_like(logits, NEG_INF))
+
+
+# ---------------------------------------------------------------- linear ----
+def init_linear_head(num_classes: int, feat_dim: int, device=None) -> Dict[str, torch.Tensor]:
+    """Zero-initialised per-task linear layer, f32 (reference:
+    classifier_heads.py:53-60)."""
+    return {"weight": torch.zeros((num_classes, feat_dim), device=device),
+            "bias": torch.zeros((num_classes,), device=device)}
+
+
+def predict_linear(head, features, logit_scale: float = 1.0,
+                   class_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    logits = logit_scale * (features.float() @ head["weight"].T + head["bias"])
+    return _mask_logits(logits, class_mask)
 
 
 def configure_proto(features, labels, sample_mask, num_classes: int,

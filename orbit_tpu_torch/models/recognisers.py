@@ -1,6 +1,8 @@
-"""Single-step few-shot recogniser (counterpart of
-``orbit_tpu/models/recognisers.py`` ``SingleStepFewShotRecogniser``;
-reference: model/few_shot_recognisers.py:271-473).
+"""Few-shot recognisers (counterpart of ``orbit_tpu/models/recognisers.py``):
+``SingleStepFewShotRecogniser`` (reference: model/few_shot_recognisers.py:
+271-473) and the FineTuner's ``MultiStepFewShotRecogniser`` (:185-269), on
+one base that holds the extractor, the chunked feature extraction, the set
+encoder and the FiLM generator.
 
     recogniser = SingleStepFewShotRecogniser(...).to(device); recogniser.init(seed)
     task_state = recogniser.personalise(context_clips, labels, mask, num_classes)
@@ -33,8 +35,16 @@ by the learner). ``personalise_with_lite`` is LITE's personalise
 (few_shot_recognisers.py:328-343,388-437): the set encoder's reps and the
 context features come from per-task no-grad caches
 (:meth:`lite_caches`), and only a subset of context clips is recomputed
-with gradients and scattered in. Not ported: FiLM on the ViTs (it raises)
-and the ``linear`` head (the FineTuner's).
+with gradients and scattered in. FiLM runs on the ViTs too (their
+norm1/norm2/final LayerNorms), and the ViTs' overrides reach kernel B and
+its backward #6.
+
+The FineTuner (:class:`MultiStepFewShotRecogniser`, orbit_tpu
+recognisers.py:390-414) personalises by gradient steps, which
+``orbit_tpu_torch.learners.multi_step`` runs: this class supplies the
+per-task trainables (a zero linear head, and with ``adapt_features`` an f32
+copy of the FiLM leaves' current values, trained directly) and the logits
+under them.
 """
 from __future__ import annotations
 
@@ -56,8 +66,12 @@ from orbit_tpu_torch.models.set_encoder import SetEncoder
 TaskState = Dict[str, Any]
 
 
-class SingleStepFewShotRecogniser(nn.Module):
-    """ProtoNets-style: personalise in one forward pass over the context."""
+class FewShotRecogniser(nn.Module):
+    """The extractor, feature extraction, set encoding and FiLM generation
+    that both recognisers share; ``HEADS`` names the classifiers a subclass
+    takes."""
+
+    HEADS: tuple = ()
 
     def __init__(self, feature_extractor_name: str = "vit_b_32",
                  adapt_features: bool = False, classifier: str = "proto",
@@ -65,9 +79,9 @@ class SingleStepFewShotRecogniser(nn.Module):
                  logit_scale: float = 1.0, dtype=torch.float32,
                  frame_norm_method: str = "imagenet", frame_size: int = 224):
         super().__init__()
-        if classifier not in heads_lib.CONFIGURE:
-            raise NotImplementedError(f"classifier {classifier!r}: not ported yet "
-                                      f"(ported: {tuple(heads_lib.CONFIGURE)})")
+        if classifier not in self.HEADS:
+            raise NotImplementedError(f"classifier {classifier!r} on "
+                                      f"{type(self).__name__} (takes: {self.HEADS})")
         configure_matmul_precision()
         self.adapt_features = adapt_features
         self.classifier = classifier
@@ -79,9 +93,6 @@ class SingleStepFewShotRecogniser(nn.Module):
             feature_extractor_name, frame_size=frame_size, dtype=dtype)
         self.film_spec = tuple(film_spec) if adapt_features else ()
         if adapt_features:
-            if not film_spec:
-                raise NotImplementedError(f"adapt_features (FiLM) on {feature_extractor_name}: "
-                                          f"not ported yet (ported: the EfficientNets)")
             self.set_encoder = SetEncoder()
             self.film_generator = FilmParameterGenerator(self.film_spec)
         if classifier == "versa":
@@ -95,15 +106,16 @@ class SingleStepFewShotRecogniser(nn.Module):
     def impl(self) -> Optional[str]:
         """The route of every op of the model, the extractor's and the
         head's: None (each op's kernel on a CUDA tensor, its plain version
-        on a CPU tensor) or "reference" (the plain versions on any
-        device)."""
+        on a CPU tensor), "reference" (the plain versions on any device) or
+        "autograd" (the plain versions as ordinary autograd ops: the MACs
+        counter's route)."""
         return self.extractor.impl
 
     @impl.setter
     def impl(self, value: Optional[str]) -> None:
         self.extractor.impl = value
 
-    def init(self, seed: int) -> "SingleStepFewShotRecogniser":
+    def init(self, seed: int) -> "FewShotRecogniser":
         """Draw the parameters (extractor, and set encoder, FiLM generator
         and Versa processors where the model has them) from a generator
         seeded with ``seed`` (on the CPU, so one seed gives the same weights
@@ -185,6 +197,12 @@ class SingleStepFewShotRecogniser(nn.Module):
         initial = get_initial_film_values(self.extractor, self.film_spec)
         return film_values_from_initial(initial, generated), l2
 
+
+class SingleStepFewShotRecogniser(FewShotRecogniser):
+    """ProtoNets-style: personalise in one forward pass over the context."""
+
+    HEADS = tuple(heads_lib.CONFIGURE)
+
     # ----------------------------------------------------------- heads ----
     def configure_head(self, context_features, context_labels, sample_mask,
                        num_classes: int) -> Dict[str, torch.Tensor]:
@@ -261,3 +279,45 @@ class SingleStepFewShotRecogniser(nn.Module):
                 with_grad: bool = False) -> torch.Tensor:
         feats = self.embed_clips(clips, with_grad, task_state["film"])
         return self.head_logits(task_state["head"], feats, class_mask)
+
+
+class MultiStepFewShotRecogniser(FewShotRecogniser):
+    """FineTuner: personalise by gradient steps on the context set
+    (reference: few_shot_recognisers.py:185-269); the inner loop is
+    ``orbit_tpu_torch.learners.multi_step``'s."""
+
+    HEADS = ("linear",)
+
+    def init_task_params(self, num_classes: int) -> Dict[str, Any]:
+        """Fresh per-task trainables: a zero linear head, plus with
+        ``adapt_features`` the FiLM leaves' current values as f32 leaf
+        tensors (reference: init_classifier :263-269, unfreeze_film
+        :195-198). The JAX package trains those leaves in their storage
+        dtype (bf16 under ``--compute_dtype bfloat16``); here they are f32
+        masters that the extractor rounds to the parameter's dtype at each
+        use."""
+        device = self.pixel_mean.device
+        task_params = {"head": heads_lib.init_linear_head(num_classes, self.output_size,
+                                                           device=device)}
+        if self.adapt_features:
+            task_params["film"] = {
+                name: value.detach().float().clone() for name, value in
+                get_initial_film_values(self.extractor, self.film_spec).items()}
+        for leaf in self.task_leaves(task_params):
+            leaf.requires_grad_(True)
+        return task_params
+
+    @staticmethod
+    def task_leaves(task_params: Dict[str, Any]):
+        """The head's tensors, then the FiLM leaves' in sorted-name order."""
+        film = task_params.get("film") or {}
+        return [task_params["head"]["weight"], task_params["head"]["bias"],
+                *(film[name] for name in sorted(film))]
+
+    def task_logits(self, task_params: Dict[str, Any], clips,
+                    class_mask: Optional[torch.Tensor] = None,
+                    with_grad: bool = False) -> torch.Tensor:
+        feats = self.embed_clips(clips, with_grad, task_params.get("film"))
+        return heads_lib.predict_linear(task_params["head"], feats,
+                                        logit_scale=self.logit_scale,
+                                        class_mask=class_mask)

@@ -104,9 +104,9 @@ def _launch(x, w, a1, b1, a2, b2, act1: bool, act2: bool) -> torch.Tensor:
 
 
 def _forward(x, w, a1, b1, a2, b2, act1: bool, act2: bool, impl):
-    if impl is not None and impl != "reference":
-        raise ValueError(f"unknown impl {impl!r} (None or 'reference')")
-    if impl == "reference" or x.device.type == "cpu":
+    if impl not in (None, "reference", "autograd"):
+        raise ValueError(f"unknown impl {impl!r} (None, 'reference' or 'autograd')")
+    if impl is not None or x.device.type == "cpu":
         return fused_dw_reference(x, w, a1, b1, a2, b2, act1=act1, act2=act2)
     if x.device.type != "cuda":
         raise ValueError(f"fused_dw_act kernel needs a CUDA tensor, got {x.device}")
@@ -138,9 +138,12 @@ def fused_dw_act(x: torch.Tensor, w, a1, b1, a2, b2, *, act1: bool = True,
     differentiable in all six inputs.
 
     impl: None (the kernel for a CUDA tensor, the plain version for a CPU
-    tensor) or "reference" (the plain version on any device)."""
+    tensor), "reference" (the plain version on any device) or "autograd"
+    (the plain version as ordinary autograd ops, for the MACs counter)."""
     _check_shapes(x, w)
     inputs = (x, w, a1, b1, a2, b2)
+    if impl == "autograd":
+        return fused_dw_reference(*inputs, act1=act1, act2=act2)
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
         return _FusedDw.apply(*inputs, act1, act2, impl)
     return _forward(*inputs, act1, act2, impl)

@@ -85,9 +85,9 @@ def _launch(features, means, precisions, class_mask, logit_scale: float) -> torc
 
 
 def _forward(features, means, precisions, class_mask, logit_scale, impl):
-    if impl is not None and impl != "reference":
-        raise ValueError(f"unknown impl {impl!r} (None or 'reference')")
-    if impl == "reference" or features.device.type == "cpu":
+    if impl not in (None, "reference", "autograd"):
+        raise ValueError(f"unknown impl {impl!r} (None, 'reference' or 'autograd')")
+    if impl is not None or features.device.type == "cpu":
         return mahalanobis_reference(features, means, precisions, class_mask, logit_scale)
     if features.device.type != "cuda":
         raise ValueError(f"mahalanobis_logits kernel needs a CUDA tensor, got "
@@ -123,9 +123,12 @@ def mahalanobis_logits(features: torch.Tensor, means: torch.Tensor,
     f32 logits, differentiable in features, means and precisions.
 
     impl: None (the kernel for a CUDA tensor, the plain version for a CPU
-    tensor) or "reference" (the plain version on any device)."""
+    tensor), "reference" (the plain version on any device) or "autograd"
+    (the plain version as ordinary autograd ops, for the MACs counter)."""
     _check_shapes(features, means, precisions)
     inputs = (features, means, precisions)
+    if impl == "autograd":
+        return mahalanobis_reference(*inputs, class_mask, logit_scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
         return _MahalanobisLogits.apply(*inputs, class_mask, logit_scale, impl)
     return _forward(*inputs, class_mask, logit_scale, impl)

@@ -11,12 +11,21 @@ Dispatch: a CPU tensor takes the plain versions (:func:`mlp_block_reference`,
 hand-written kernels (``csrc/mlp_block.cu``, ``csrc/mlp_block_bwd.cu``) or
 raises. ``impl="reference"`` forces the plain versions and is meant for the
 tests and ``chip_smoke.py`` only.
+``impl="autograd"`` runs the plain version as ordinary autograd ops,
+with no custom backward: autograd keeps its intermediates and computes only
+the gradients an input needs, as XLA differentiates the JAX package's
+plain route. The MACs counter (``utils/ops_counter.py``) counts that
+route; nothing else takes it.
 
 Gradients: when autograd records, the op runs as a
 ``torch.autograd.Function`` that saves the residuals of the JAX custom_vjp
 (orbit_tpu/ops/mlp_block.py:289-292) and whose backward recomputes
 LayerNorm, fc1 and GELU: dx in x.dtype, and dγ, dβ, dW1, db1, dW2 and
-db2 = colsum(g) summed in f32, cast to the parameters' dtypes.
+db2 = colsum(g) summed in f32, cast to the parameters' dtypes. When no
+weight or weight bias needs a gradient (``ctx.needs_input_grad``, e.g. a
+FiLM step with the extractor frozen), the plain backward skips dW1, db1,
+dW2 and db2, as XLA drops what no output reads; the kernel still
+computes them.
 """
 from __future__ import annotations
 
@@ -120,13 +129,15 @@ def mlp_block_backward_stages(x, ln_scale, ln_bias, w1, b1, w2, g, *,
 
 
 def mlp_block_backward_reference(x, ln_scale, ln_bias, w1, b1, w2, g, *,
-                                 ln_eps: float = 1e-6):
+                                 ln_eps: float = 1e-6, weight_grads: bool = True):
     """Plain backward with the TPU kernel's rounding points
     (orbit_tpu/ops/mlp_block.py:186-212): in f32, dhg = g·W2ᵀ,
     dhpre = dhg·(½(1+erf) + hpre·φ(hpre)), dxn = cast(dhpre)·W1ᵀ, then the
     LayerNorm backward per row plus the residual g; dW1 = xnᵀ·cast(dhpre),
     dW2 = hgᵀ·g, and column sums for db1 (of f32 dhpre), db2, dγ and dβ.
-    Returns (dx in x.dtype, dγ, dβ, dW1, db1, dW2, db2 in f32)."""
+    Returns (dx in x.dtype, dγ, dβ, dW1, db1, dW2, db2 in f32); without
+    ``weight_grads`` the last four are None and their products are not
+    computed."""
     _check_shapes(x, w1, w2)
     dt = x.dtype
     _, xhat, rstd, xn, hpre, erf, hg = _ln_fc1_gelu(x, ln_scale, ln_bias, w1, b1,
@@ -142,7 +153,10 @@ def mlp_block_backward_reference(x, ln_scale, ln_bias, w1, b1, w2, g, *,
     m1 = dxhat.mean(dim=-1, keepdim=True)
     m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
     dx = (rstd * (dxhat - m1 - xhat * m2) + gf).to(dt)
-    return (dx, rows(dxn * xhat).sum(dim=0), rows(dxn).sum(dim=0),
+    vector_grads = (dx, rows(dxn * xhat).sum(dim=0), rows(dxn).sum(dim=0))
+    if not weight_grads:
+        return (*vector_grads, None, None, None, None)
+    return (*vector_grads,
             torch.matmul(rows(xn).T, rows(dhb)), rows(dhpre).sum(dim=0),
             torch.matmul(rows(hg).T, rows(gf)), rows(gf).sum(dim=0))
 
@@ -243,9 +257,9 @@ def _launch_backward(x, ln_scale, ln_bias, w1, b1, w2, g, ln_eps: float):
 
 
 def _use_reference(x, impl) -> bool:
-    if impl is not None and impl != "reference":
-        raise ValueError(f"unknown impl {impl!r} (None or 'reference')")
-    if impl == "reference" or x.device.type == "cpu":
+    if impl not in (None, "reference", "autograd"):
+        raise ValueError(f"unknown impl {impl!r} (None, 'reference' or 'autograd')")
+    if impl is not None or x.device.type == "cpu":
         return True
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp_block kernel needs a CUDA tensor, got {x.device}")
@@ -260,13 +274,16 @@ def _forward(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps, impl):
 
 
 def fused_mlp_block_backward(x, ln_scale, ln_bias, w1, b1, w2, g, *,
-                             ln_eps: float = 1e-6, impl: str | None = None):
+                             ln_eps: float = 1e-6, impl: str | None = None,
+                             weight_grads: bool = True):
     """(dx, dγ, dβ, dW1, db1, dW2, db2) of :func:`fused_mlp_block` for the
-    cotangent g: dx in x.dtype, the rest in f32. impl as for the forward."""
+    cotangent g: dx in x.dtype, the rest in f32. impl as for the forward.
+    ``weight_grads=False`` lets the plain version return None for dW1, db1,
+    dW2 and db2 (the kernel computes them all the same)."""
     _check_shapes(x, w1, w2)
     if _use_reference(x, impl):
         return mlp_block_backward_reference(x, ln_scale, ln_bias, w1, b1, w2, g,
-                                            ln_eps=ln_eps)
+                                            ln_eps=ln_eps, weight_grads=weight_grads)
     return _launch_backward(x, ln_scale, ln_bias, w1, b1, w2, g, ln_eps)
 
 
@@ -281,9 +298,10 @@ class _FusedMlpBlock(torch.autograd.Function):
     def backward(ctx, g):
         x, *params = ctx.saved_tensors
         grads = fused_mlp_block_backward(x, *params[:5], g, ln_eps=ctx.ln_eps,
-                                         impl=ctx.impl)
-        return (grads[0], *(d.to(p.dtype) for d, p in zip(grads[1:], params)),
-                None, None)
+                                         impl=ctx.impl,
+                                         weight_grads=any(ctx.needs_input_grad[3:7]))
+        return (grads[0], *(None if d is None else d.to(p.dtype)
+                            for d, p in zip(grads[1:], params)), None, None)
 
 
 def fused_mlp_block(x: torch.Tensor, ln_scale, ln_bias, w1, b1, w2, b2, *,
@@ -292,9 +310,12 @@ def fused_mlp_block(x: torch.Tensor, ln_scale, ln_bias, w1, b1, w2, b2, *,
     and the six parameters.
 
     impl: None (the kernels for a CUDA tensor, the plain versions for a CPU
-    tensor) or "reference" (the plain versions on any device)."""
+    tensor), "reference" (the plain versions on any device) or "autograd"
+    (the plain forward differentiated by autograd)."""
     _check_shapes(x, w1, w2)
     tensors = (x, ln_scale, ln_bias, w1, b1, w2, b2)
+    if impl == "autograd":
+        return mlp_block_reference(*tensors, ln_eps=ln_eps)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return _FusedMlpBlock.apply(*tensors, ln_eps, impl)
     return _forward(*tensors, ln_eps, impl)

@@ -14,13 +14,21 @@ a CUDA tensor launches the hand-written kernels
 (``csrc/fused_qkv_attention.cu``, ``csrc/fused_qkv_attention_bwd.cu``) or
 raises. ``impl="reference"`` forces the plain versions and is meant for the
 tests and ``chip_smoke.py`` only.
+``impl="autograd"`` runs the plain version as ordinary autograd ops,
+with no custom backward: autograd keeps its intermediates and computes only
+the gradients an input needs, as XLA differentiates the JAX package's
+plain route. The MACs counter (``utils/ops_counter.py``) counts that
+route; nothing else takes it.
 
 Gradients: when autograd records (grad enabled and an input requires a
 gradient) the op runs as a ``torch.autograd.Function`` that saves
 ``(x, kernel, bias)``, the residuals of the JAX custom_vjp
 (orbit_tpu/ops/tiny_attention.py:484-486), and whose backward recomputes
 qkv and the softmax: dx in x.dtype, dW and db summed in f32 and cast to the
-parameters' dtype (:476). Under ``inference_mode`` nothing is saved.
+parameters' dtype (:476). When neither the kernel nor the bias needs a
+gradient (a FiLM step with the extractor frozen), the plain backward skips
+dW and db, as XLA drops what no output reads; the kernel still computes
+them. Under ``inference_mode`` nothing is saved.
 
 ``tiny_attention(qkv, num_heads)`` is the attention alone, on the (B, S,
 3D) output of a qkv projection (``orbit_tpu/ops/tiny_attention.py:312``):
@@ -132,18 +140,22 @@ def qkv_attention_reference(x: torch.Tensor, kernel: torch.Tensor,
     return attention_reference(_project(x, kernel, bias), num_heads)
 
 
-def qkv_attention_backward_reference(x, kernel, bias, g, num_heads: int):
+def qkv_attention_backward_reference(x, kernel, bias, g, num_heads: int,
+                                     weight_grads: bool = True):
     """Plain backward with the TPU kernel's rounding points
     (orbit_tpu/ops/tiny_attention.py:403-421): the recomputed qkv, the f32
     dqkv of :func:`attention_backward_reference` before its cast; then dx =
     cast(dqkv)·Wᵀ cast to x.dtype, dW = xᵀ·cast(dqkv) and db = colsum(dqkv)
-    in f32. Returns (dx, dW, db)."""
+    in f32. Returns (dx, dW, db); without ``weight_grads`` dW and db are
+    None and not computed."""
     _check_shapes(x, kernel, bias, num_heads)
     dt = x.dtype
     n, s, d = x.shape
     dqkv = _dqkv_f32(_project(x, kernel, bias), g, num_heads).reshape(n * s, 3 * d)
     dqkv_t = dqkv.to(dt).float()
     dx = torch.matmul(dqkv_t, kernel.to(dt).float().T).to(dt).view(n, s, d)
+    if not weight_grads:
+        return dx, None, None
     dw = torch.matmul(x.float().reshape(n * s, d).T, dqkv_t)
     return dx, dw, dqkv.sum(dim=0)
 
@@ -306,9 +318,9 @@ def _launch_attention_backward(qkv, g, num_heads: int) -> torch.Tensor:
 
 
 def _use_reference(x, impl, name: str = "fused_qkv_attention") -> bool:
-    if impl is not None and impl != "reference":
-        raise ValueError(f"unknown impl {impl!r} (None or 'reference')")
-    if impl == "reference" or x.device.type == "cpu":
+    if impl not in (None, "reference", "autograd"):
+        raise ValueError(f"unknown impl {impl!r} (None, 'reference' or 'autograd')")
+    if impl is not None or x.device.type == "cpu":
         return True
     if x.device.type != "cuda":
         raise ValueError(f"{name} kernel needs a CUDA tensor, got {x.device}")
@@ -322,12 +334,15 @@ def _forward(x, kernel, bias, num_heads, impl):
 
 
 def fused_qkv_attention_backward(x, kernel, bias, g, num_heads: int, *,
-                                 impl: str | None = None):
+                                 impl: str | None = None, weight_grads: bool = True):
     """(dx, dW, db) of :func:`fused_qkv_attention` for the cotangent g:
-    dx in x.dtype, dW and db in f32. impl as for the forward."""
+    dx in x.dtype, dW and db in f32. impl as for the forward.
+    ``weight_grads=False`` lets the plain version return None for dW and db
+    (the kernel computes them all the same)."""
     _check_shapes(x, kernel, bias, num_heads)
     if _use_reference(x, impl):
-        return qkv_attention_backward_reference(x, kernel, bias, g, num_heads)
+        return qkv_attention_backward_reference(x, kernel, bias, g, num_heads,
+                                                weight_grads=weight_grads)
     return _launch_backward(x, kernel, bias, g, num_heads)
 
 
@@ -341,9 +356,11 @@ class _FusedQkvAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, kernel, bias = ctx.saved_tensors
-        dx, dw, db = fused_qkv_attention_backward(x, kernel, bias, g, ctx.num_heads,
-                                                  impl=ctx.impl)
-        return dx, dw.to(kernel.dtype), db.to(bias.dtype), None, None
+        dx, dw, db = fused_qkv_attention_backward(
+            x, kernel, bias, g, ctx.num_heads, impl=ctx.impl,
+            weight_grads=any(ctx.needs_input_grad[1:3]))
+        return (dx, None if dw is None else dw.to(kernel.dtype),
+                None if db is None else db.to(bias.dtype), None, None)
 
 
 def fused_qkv_attention(x: torch.Tensor, kernel: torch.Tensor,
@@ -353,8 +370,11 @@ def fused_qkv_attention(x: torch.Tensor, kernel: torch.Tensor,
     x, kernel and bias.
 
     impl: None (the kernels for a CUDA tensor, the plain versions for a CPU
-    tensor) or "reference" (the plain versions on any device)."""
+    tensor), "reference" (the plain versions on any device) or "autograd"
+    (the plain forward differentiated by autograd)."""
     _check_shapes(x, kernel, bias, num_heads)
+    if impl == "autograd":
+        return qkv_attention_reference(x, kernel, bias, num_heads)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, kernel, bias)):
         return _FusedQkvAttention.apply(x, kernel, bias, num_heads, impl)
     return _forward(x, kernel, bias, num_heads, impl)
@@ -402,8 +422,11 @@ def tiny_attention(qkv: torch.Tensor, num_heads: int, *,
     raise otherwise.
 
     impl: None (the kernels for a CUDA tensor, the plain versions for a CPU
-    tensor) or "reference" (the plain versions on any device)."""
+    tensor), "reference" (the plain versions on any device) or "autograd"
+    (the plain forward differentiated by autograd)."""
     _check_qkv(qkv, num_heads)
+    if impl == "autograd":
+        return attention_reference(qkv, num_heads)
     if torch.is_grad_enabled() and qkv.requires_grad:
         return _TinyAttention.apply(qkv, num_heads, impl)
     return _attention_forward(qkv, num_heads, impl)

@@ -8,9 +8,9 @@ challenge-format results.json export. This is bookkeeping, not compute, so it
 stays NumPy on the host (SURVEY.md §7 architecture map).
 
 Copy of ``orbit_tpu/utils/eval_metrics.py`` for the PyTorch port, which imports
-nothing of the JAX package; keep the two in step. One difference: the
-MACs counter is not ported, so ``TestEvaluator(with_ops_counter=True)``
-raises ``NotImplementedError``.
+nothing of the JAX package; keep the two in step. One difference:
+``TestEvaluator(with_ops_counter=True)`` builds the port's MACs counter
+(``orbit_tpu_torch/utils/ops_counter.py``).
 """
 from __future__ import annotations
 
@@ -118,9 +118,10 @@ class TestEvaluator(Evaluator):
         super().__init__(stats_to_compute)
         self.save_dir = save_dir
         if with_ops_counter:
-            raise NotImplementedError("the MACs counter (orbit_tpu/utils/"
-                                      "ops_counter.py) is not ported yet")
-        self.ops_counter = None
+            from orbit_tpu_torch.utils.ops_counter import OpsCounter
+            self.ops_counter = OpsCounter(count_backward=count_backwards)
+        else:
+            self.ops_counter = None
         self.reset()
 
     # ------------------------------------------------------------ state ----

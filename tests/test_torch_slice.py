@@ -8,7 +8,7 @@
   on the synthetic ORBIT tree of ``conftest.orbit_fixture_tree``, with the
   flags of ``tests/test_learners.py`` and the JAX learner's parameters:
   the per-frame predictions in ``results.json`` and the logits behind them;
-- the import boundary: the port, its CLI and ``chip_smoke.py`` load no JAX,
+- the import boundary: the port, its CLIs and ``chip_smoke.py`` load no JAX,
   Flax or PIL and nothing of the JAX package, and ``chip_smoke.py`` refuses
   to run without a GPU.
 
@@ -166,7 +166,7 @@ def test_port_learner_matches_jax_learner(orbit_root, tmp_path, monkeypatch):
         assert len(ours[user]) == len(tasks)
         for t_task, j_task in zip(ours[user], tasks):
             assert t_task["task_object_list"] == j_task["task_object_list"]
-            assert "task_macs_to_personalise" not in t_task  # MACs: not ported
+            assert t_task["task_macs_to_personalise"] > 0  # the port's MACs counter
             assert t_task["task_videos"].keys() == j_task["task_videos"].keys()
             for video, frames in j_task["task_videos"].items():
                 assert t_task["task_videos"][video].keys() == frames.keys()
@@ -201,7 +201,7 @@ def test_port_imports_no_jax_flax_or_pil():
             "for m in pkgutil.walk_packages(orbit_tpu_torch.__path__, 'orbit_tpu_torch.'):\n"
             "    if m.module_finder.find_spec(m.name).origin.endswith('.py'):  # not a built .so\n"
             "        importlib.import_module(m.name)\n"
-            "import single_step_learner_torch, chip_smoke\n"
+            "import single_step_learner_torch, multi_step_learner_torch, chip_smoke\n"
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'PIL', 'optax')\n"
             "       or m == 'orbit_tpu' or m.startswith('orbit_tpu.')]\n"
             "assert not bad, bad\n")
