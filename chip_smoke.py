@@ -115,12 +115,35 @@ Phases, each of which passes or raises:
    step, #8's plain-recompute backward), calibrated as phase 6; #8 in all
    12 stride-1 tails of every extractor forward; the gradients held to
    phase 7's limits (per tensor 2e-4 in f32, 2^-3 of the norm in bf16).
+10. learn_extractor path: phase 5's run on EfficientNet-B0 at full width
+   (224 px, all 16 MBConv blocks, D = 1280), bf16, ``--classifier proto
+   --with_lite --learn_extractor --num_lite_samples 16 --batch_size 256``
+   in ``--mode train_test`` over phase 5's train tasks, calibrated as
+   phase 6: every BatchNorm of the train-mode forwards on the masked batch
+   statistics, every depthwise tail composed there. Before the run, one
+   reduced f32 LITE step on the card against the same step on the CPU
+   (the loss, every extractor gradient against its tensor's largest value
+   and every running statistic, a mean in units of the running deviation,
+   within 2e-4: no kernel runs in a train-mode forward, so this is the
+   check of train-mode BatchNorm on the card); a
+   ``torch.profiler`` trace of one warm bf16 task step (after an untimed
+   first one, which picks cuDNN's algorithms). The counters must show #8
+   in all 12 stride-1 tails of every eval forward (validation and test, on
+   the learned statistics) and in no train-mode forward; every extractor
+   parameter and running statistic must move. On the trained model: each
+   launch of #8 against its plain version on the same inputs (phase 3's
+   limits, f32 and bf16), and the test task end to end through the kernels
+   against their plain versions, its argmax on 99% of the real query
+   frames held in f32 and printed in bf16 beside the witness's, as phase 9
+   (random weights on learned statistics amplify a change of rounding:
+   the features and logits are printed); the median and range of the time
+   per task step and the peak device memory.
 
 The line before the last is ``{"kernels": [...]}`` (launches: kernels A and
 B from phase 4, #4 and #6 from phase 5, #7 and #8 from phase 6; #1 and #2
-are on no path and report their launches over phases 4 to 9 together,
+are on no path and report their launches over phases 4 to 10 together,
 which must be 0; their checks and times are phase 3's; ``launches_by_path``
-gives every kernel's launches on each path, phases 8 and 9's paths
+gives every kernel's launches on each path, phases 8 to 10's paths
 included, ``gemm_ms`` the cuBLAS yardstick of A, B, #4 and #6); the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
@@ -1139,16 +1162,24 @@ def recorded_run(torch, learner):
 
 def train_path_phase(torch, card: str, workdir: Path, extractor: str = "vit_b_32",
                      frame_size: int = 224, target_shots: int = 60) -> dict:
-    """Phase 5: the port's LITE meta-training path (ViT-B/32 at 224 px
-    unless told otherwise) in ``--mode train_test``; before it, one task's
-    gradients through the kernels against those through the plain
-    versions."""
+    """Phases 5 and 10: the port's ProtoNets+LITE meta-training path with
+    ``--learn_extractor`` (ViT-B/32 at 224 px unless told otherwise) in
+    ``--mode train_test``. Before the run, on the ViT, one task's gradients
+    through the kernels against those through the plain versions; on an
+    EfficientNet (phase 10), whose train-mode forwards launch no kernel, one
+    f32 LITE step on the card against the same step on the CPU
+    (:func:`card_vs_cpu_step`), with every BatchNorm calibrated after each
+    weight draw as in phase 6. Then one warm step traced, and the run."""
+    import numpy as np
+
     from orbit_tpu_torch.data.episodes import pad_episode
     from orbit_tpu_torch.learners import steps as steps_lib
     from orbit_tpu_torch.learners.single_step import SingleStepLearner
+    from orbit_tpu_torch.models.backbones.efficientnet import EfficientNet, calibrate_batchnorm
     from orbit_tpu_torch.models.backbones.vit import ViT
     from orbit_tpu_torch.utils.args import parse_args
 
+    effnet = extractor.startswith("efficientnet")
     batch, num_lite = 256, 16
     args = parse_args("single-step-learner", [
         "--data_path", str(workdir / "data"), "--checkpoint_dir", str(workdir / "ckpt"),
@@ -1159,29 +1190,101 @@ def train_path_phase(torch, card: str, workdir: Path, extractor: str = "vit_b_32
         "--tasks_per_batch", "2", "--epochs", "1", "--num_train_tasks", "1",
         "--num_val_tasks", "1", "--num_test_tasks", "1", "--seed", str(SEED)])
     train_tasks = synthetic_train_tasks(frame_size=frame_size, target_shots=target_shots)
+    test_tasks = synthetic_tasks(2, frame_size, seed=SEED + 2)
+    after_init = None
+    if effnet:
+        # every task's context frames, as phase 7
+        frames = torch.from_numpy(np.concatenate([t["context_clips"][:, 0]
+                                                  for t in train_tasks]))
+
+        def after_init(rec):
+            calibrate_batchnorm(rec.extractor,
+                                rec._maybe_normalize(frames.to(rec.pixel_mean.device)))
     learner = SingleStepLearner(
         args, train_queue=TaskQueue(train_tasks),
         validation_queue=TaskQueue(synthetic_tasks(1, frame_size, seed=SEED + 1)),
-        test_queue=TaskQueue(synthetic_tasks(2, frame_size, seed=SEED + 2)))
+        test_queue=TaskQueue(test_tasks), after_init=after_init)
     batches = [math.ceil(len(t["target_labels"]) / batch) for t in train_tasks]
-
-    # One task, the same injected subsets, through the kernels and through
-    # the plain versions. (a) The whole LITE step: its losses and its
-    # gradients' largest difference, per tensor against its largest value,
-    # are printed. They are not held to PATH_REL_TOL: the proto logits are
-    # about a hundred times their spread across classes (|f|^2 is about D),
-    # so the bf16 drift of the features through 12 layers (about 1e-2 of
-    # their size, phase 4) moves the logits by about 1 and reweights the
-    # loss's softmax by tens of percent, whatever the kernels do. (b) The
-    # step's two differentiated forwards (its grad subset and its first
-    # target batch) under one fixed upstream gradient of the features, which
-    # takes that sensitivity out: held to PATH_REL_TOL per tensor.
     rec = learner.recogniser
-    dev = learner.device
     episode = learner._train_episode(pad_episode(train_tasks[0]))
     gen = torch.Generator().manual_seed(SEED)
     subsets = [steps_lib.lite_grad_subset(gen, episode["context_mask"], num_lite)
                for _ in range(batches[0])]
+    step = steps_lib.build_train_task_lite(rec, args)
+    if effnet:
+        card_vs_cpu_step(torch, learner, train_tasks[0], card)
+        # the first bf16 train-mode step picks cuDNN's algorithms for its
+        # shapes: not a warm step
+        t0 = time.perf_counter()
+        step(episode, grad_idxs=subsets)
+        torch.cuda.synchronize()
+        print(f"  first bf16 task step (cold): {time.perf_counter() - t0:.2f} s")
+    else:
+        vit_step_kernels_vs_plain(torch, rec, args, episode, subsets, batch, card)
+    # one warm LITE step under the profiler: device time by kernel group
+    # and the device's idle share
+    device_breakdown(torch, lambda: step(episode, grad_idxs=subsets), card)
+    rec.zero_grad(set_to_none=True)
+
+    # the learner's run, with its updates and losses checked; extractor
+    # forwards counted by mode (the MACs counter's run on a meta copy, the
+    # calibration's take the composed route; neither launches a kernel)
+    forwards = {"train": 0, "eval": 0}
+    model = EfficientNet if effnet else ViT
+    model_forward = model.forward
+
+    def counted_forward(self, x, *a, **kw):
+        if x.device.type != "meta" and kw.get("impl") != "composed":
+            forwards["train" if kw.get("train") else "eval"] += 1
+        return model_forward(self, x, *a, **kw)
+
+    initial = {k: v.detach().to("cpu", copy=True) for k, v in rec.extractor.state_dict().items()}
+    model.forward = counted_forward
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        losses, moved, launches = recorded_run(torch, learner)
+    finally:
+        model.forward = model_forward
+    wall = time.perf_counter() - t0
+
+    if len(losses) != len(train_tasks) or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train losses {losses}")
+    if len(moved) != math.ceil(len(train_tasks) / args.tasks_per_batch):
+        raise AssertionError(f"{len(moved)} optimiser updates")
+    if not Path(learner.test_evaluator.json_results_path).exists():
+        raise AssertionError("the test protocol after training wrote no results.json")
+    if effnet:
+        effnet_train_checks(torch, learner, launches, forwards, initial, test_tasks[0],
+                            len(train_tasks) + 2 * sum(batches))
+    else:
+        vit_train_checks(launches, forwards["eval"] + forwards["train"], batches, batch,
+                         num_lite, train_tasks)
+    print(f"  {len(train_tasks)} tasks, {sum(batches)} target batches, {len(moved)} "
+          f"updates (parameter tensors moved, with a nonzero gradient, in all: "
+          f"{moved}), losses "
+          f"{[round(x, 6) for x in losses]}, extractor forwards {forwards}, "
+          f"wall {wall:.2f} s")
+    print_step_times(torch, learner.train_step_seconds, card)
+    return launches
+
+
+def vit_step_kernels_vs_plain(torch, rec, args, episode, subsets, batch: int,
+                              card: str) -> None:
+    """Phase 5: one task, the same injected subsets, through the kernels and
+    through the plain versions. (a) The whole LITE step: its losses and its
+    gradients' largest difference, per tensor against its largest value,
+    are printed. They are not held to PATH_REL_TOL: the proto logits are
+    about a hundred times their spread across classes (|f|^2 is about D),
+    so the bf16 drift of the features through 12 layers (about 1e-2 of
+    their size, phase 4) moves the logits by about 1 and reweights the
+    loss's softmax by tens of percent, whatever the kernels do. (b) The
+    step's two differentiated forwards (its grad subset and its first
+    target batch) under one fixed upstream gradient of the features, which
+    takes that sensitivity out: held to PATH_REL_TOL per tensor."""
+    from orbit_tpu_torch.learners import steps as steps_lib
+
+    dev = episode["context_clips"].device
     step = steps_lib.build_train_task_lite(rec, args)
     forwards_in = (episode["context_clips"][subsets[0].to(dev)],
                    episode["target_clips"][:batch])
@@ -1209,36 +1312,14 @@ def train_path_phase(torch, card: str, workdir: Path, extractor: str = "vit_b_32
           f"by at most {step_worst:.3e} of a tensor's largest value")
     print(f"  under a fixed upstream gradient: {len(fixed[None])} gradient tensors agree "
           f"within {PATH_REL_TOL} of their largest value, max abs {worst:.3e}")
-    del grads, fixed
-    # one warm LITE step under the profiler: device time by kernel group
-    # and the device's idle share
-    device_breakdown(torch, lambda: step(episode, grad_idxs=subsets), card)
-    rec.zero_grad(set_to_none=True)
 
-    # the learner's run, with its updates and losses checked
-    forwards = [0]
-    vit_forward = ViT.forward
 
-    def counted_forward(self, x, film=None):
-        # the MACs counter's forwards run on a meta copy and launch nothing
-        forwards[0] += x.device.type != "meta"
-        return vit_forward(self, x, film)
-
-    ViT.forward = counted_forward
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    try:
-        losses, moved, launches = recorded_run(torch, learner)
-    finally:
-        ViT.forward = vit_forward
-    wall = time.perf_counter() - t0
-
-    if len(losses) != len(train_tasks) or not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"train losses {losses}")
-    if len(moved) != math.ceil(len(train_tasks) / args.tasks_per_batch):
-        raise AssertionError(f"{len(moved)} optimiser updates")
-    # both differentiated forwards of a target batch (the grad subset and
-    # the target clips) run both backward kernels once per encoder layer
+def vit_train_checks(launches: dict, forwards: int, batches, batch: int, num_lite: int,
+                     train_tasks) -> None:
+    """Phase 5's launch counts: both differentiated forwards of a target
+    batch (the grad subset and the target clips) run both backward kernels
+    once per encoder layer, and every extractor forward runs both forward
+    kernels once per layer."""
     for name in ("fused_qkv_attention_bwd", "fused_mlp_block_bwd"):
         if launches[name] != DEPTH * 2 * sum(batches):
             raise AssertionError(f"{name}: {launches[name]} launches, expected "
@@ -1249,18 +1330,189 @@ def train_path_phase(torch, card: str, workdir: Path, extractor: str = "vit_b_32
     print(f"  #4 and #6 launches by batch size: {by_size} (target batches), "
           f"{num_lite}: {DEPTH * len(sizes)} (grad subsets)")
     for name in ("fused_qkv_attention", "fused_mlp_block"):
-        if launches[name] != DEPTH * forwards[0]:
+        if launches[name] != DEPTH * forwards:
             raise AssertionError(f"{name}: {launches[name]} launches, expected "
-                                 f"{DEPTH} x {forwards[0]} extractor forwards")
-    if not Path(learner.test_evaluator.json_results_path).exists():
-        raise AssertionError("the test protocol after training wrote no results.json")
-    print(f"  {len(train_tasks)} tasks, {sum(batches)} target batches, {len(moved)} "
-          f"updates (parameter tensors moved, with a nonzero gradient, in all: "
-          f"{moved}), losses "
-          f"{[round(x, 6) for x in losses]}, {forwards[0]} extractor forwards, "
-          f"wall {wall:.2f} s")
-    print_step_times(torch, learner.train_step_seconds, card)
-    return launches
+                                 f"{DEPTH} x {forwards} extractor forwards")
+
+
+def card_vs_cpu_step(torch, learner, task: dict, card: str) -> None:
+    """Phase 10's check of train-mode BatchNorm on the card: one f32 LITE
+    step of copies of the learner's recogniser on the card and on the CPU,
+    on a reduced task at 224 px (5 context clips padded to 8, 4 target clips
+    padded to 8, batch 4, 2 LITE samples, the subsets injected): the
+    context's second chunk and the second target batch hold padding only,
+    so the step runs the masked statistics, the all-padding fallback and a
+    padding-only batch's subset pass. The loss, every extractor gradient
+    (against its tensor's largest value, at least 1e-2 of the step's
+    largest gradient) and every running statistic after the step (a mean in
+    units of the running deviation, a variance against itself) are held to
+    F32_PATH_GRAD_TOL: in f32 the two sides differ in summation order
+    only. No kernel runs in a train-mode forward, so the card's step is held
+    against the CPU's rather than against its own plain version."""
+    import copy
+
+    import numpy as np
+
+    from orbit_tpu_torch.data.episodes import pad_episode
+    from orbit_tpu_torch.learners import steps as steps_lib
+
+    ctx = np.concatenate([np.nonzero(task["context_labels"] == c)[0][:1] for c in range(5)])
+    tgt = np.concatenate([np.nonzero(task["target_labels"] == c)[0][:1] for c in range(4)])
+    small = {"context_clips": task["context_clips"][ctx],
+             "context_labels": task["context_labels"][ctx],
+             "target_clips": task["target_clips"][tgt],
+             "target_labels": task["target_labels"][tgt]}
+    ep = learner._train_episode(pad_episode(small, size_buckets=(8,)))
+    a = SimpleNamespace(tasks_per_batch=2, num_lite_samples=2, batch_size=4,
+                        learn_extractor=True)
+    gen = torch.Generator().manual_seed(SEED)
+    subsets = [steps_lib.lite_grad_subset(gen, ep["context_mask"], a.num_lite_samples)
+               for _ in range(2)]
+    out = []
+    for where in (learner.device, torch.device("cpu")):
+        rec = copy.deepcopy(learner.recogniser).to(where)
+        rec.dtype = rec.extractor.dtype = torch.float32
+        rec.batch_size = a.batch_size
+        rec.zero_grad(set_to_none=True)
+        t0 = time.perf_counter()
+        loss, _ = steps_lib.build_train_task_lite(rec, a)(
+            {k: v.to(where) for k, v in ep.items()}, grad_idxs=subsets)
+        loss = float(loss)
+        seconds = time.perf_counter() - t0
+        out.append((loss, {n: p.grad.cpu() for n, p in rec.extractor.named_parameters()},
+                    {n: b.cpu() for n, b in rec.extractor.named_buffers()}, seconds))
+        del rec
+    (loss, grads, stats, s_card), (loss_cpu, grads_cpu, stats_cpu, s_cpu) = out
+    loss_rel = abs(loss - loss_cpu) / max(abs(loss_cpu), 1e-30)
+    if loss_rel > F32_PATH_GRAD_TOL:
+        raise AssertionError(f"f32 LITE step loss on the card {loss:.7f}, on the CPU "
+                             f"{loss_cpu:.7f}: {loss_rel:.3e} apart")
+    # A tensor whose exact gradient is zero holds rounding noise only: the
+    # bias of a BatchNorm that reaches the loss through linear maps into
+    # train-mode BatchNorms only (bn3 of every InvertedResidual block, bn2
+    # of the DepthwiseSeparable one), which subtract any constant shift. As
+    # in the CPU tests, a gradient's scale is at least 1e-2 of the step's
+    # largest gradient. The running means are read in units of the running
+    # deviation sqrt(var + eps), the variances relative to themselves, as
+    # tests/test_torch_learn_extractor.py reads them.
+    largest = max(float(g.abs().max()) for g in grads_cpu.values())
+
+    def scale(name, ref):
+        if name in grads_cpu:
+            return torch.clamp(ref.abs().max(), min=1e-2 * largest)
+        if name.endswith(".mean"):
+            return (stats_cpu[name[:-len("mean")] + "var"] + 1e-3).sqrt()
+        return ref.abs()
+
+    worst = {}
+    for kind, ours, ref in (("gradients", grads, grads_cpu),
+                            ("running statistics", stats, stats_cpu)):
+        rel = {}
+        for name, b in ref.items():
+            a = ours[name]
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"f32 LITE step on the card: non-finite {name}")
+            rel[name] = float(((a - b).abs() / scale(name, b)).max())
+        name = max(rel, key=rel.get)
+        worst[kind] = (name, rel[name])
+        if rel[name] > F32_PATH_GRAD_TOL:
+            raise AssertionError(f"f32 LITE step {kind}, card vs CPU: {name} differs by "
+                                 f"{rel[name]:.3e} of its scale, more than {F32_PATH_GRAD_TOL}")
+    print(f"EfficientNet-B0 learn_extractor path (card: {card}): one reduced f32 LITE step "
+          f"(5 + 3 pad context, 4 + 4 pad target clips, batch 4) on the card against the "
+          f"CPU: loss {loss:.7f} vs {loss_cpu:.7f} ({loss_rel:.3e} apart); " + "; ".join(
+              f"{len(grads if kind == 'gradients' else stats)} extractor {kind} within "
+              f"{F32_PATH_GRAD_TOL} of their scale (worst {r:.3e}, {name})"
+              for kind, (name, r) in worst.items())
+          + f"; {s_card:.2f} s on the card, {s_cpu:.2f} s on the CPU")
+
+
+def effnet_train_checks(torch, learner, launches: dict, forwards: dict, initial: dict,
+                        test_task: dict, train_forwards: int) -> None:
+    """Phase 10's checks after the run: #8 in all 12 stride-1 tails of every
+    eval forward (validation and test, on the learned statistics) and in no
+    train-mode forward (``train_forwards``: per task the cache pass and two
+    a target batch); every extractor parameter and running statistic moved
+    from its calibrated initial value; on the model the test protocol ran
+    last (the best validation checkpoint), in f32 and in bf16, every launch
+    of #8 in one eval forward against its plain version on the same inputs
+    (phase 3's DW_TOL); and the test task end to end through the kernels
+    against their plain versions, its argmax held in f32 as phase 9 holds
+    the B0 FineTuner's, and printed in bf16 beside the witness's (#8's plain
+    version with its f32 stages in f64: a change of f32 rounding alone).
+    The learned statistics are moving averages of batch statistics, not
+    the eval frames' own (phase 6 calibrates on them), and random weights
+    amplify the difference block after block: the features reach about
+    1e5, and the witness moves them by 8% in f32 and 43% in bf16 (PERF.md
+    §6), so the features and logits are printed, not held."""
+    import copy
+
+    from orbit_tpu_torch.data.episodes import pad_episode
+    from orbit_tpu_torch.models import convert
+
+    if forwards["train"] != train_forwards:
+        raise AssertionError(f"{forwards['train']} train-mode extractor forwards, expected "
+                             f"{train_forwards}")
+    if launches["fused_dw_act"] != B0_DW_PER_FORWARD * forwards["eval"]:
+        raise AssertionError(f"fused_dw_act: {launches['fused_dw_act']} launches, expected "
+                             f"{B0_DW_PER_FORWARD} x {forwards['eval']} eval forwards and none "
+                             f"in the {forwards['train']} train-mode forwards")
+    final = convert.load(learner.checkpoint_path_final)
+    kinds = {"parameters": [k for k, _ in learner.recogniser.extractor.named_parameters()],
+             "running statistics": [k for k, _ in learner.recogniser.extractor.named_buffers()]}
+    for kind, keys in kinds.items():
+        still = [k for k in keys if torch.equal(final[f"extractor.{k}"], initial[k])]
+        if still:
+            raise AssertionError(f"{len(still)} of {len(keys)} extractor {kind} did not move "
+                                 f"in training: {still[:4]}")
+    print(f"  launches: fused_dw_act {launches['fused_dw_act']} = {B0_DW_PER_FORWARD} x "
+          f"{forwards['eval']} eval forwards, none in {forwards['train']} train-mode forwards; "
+          f"all {len(kinds['parameters'])} extractor parameter tensors and "
+          f"{len(kinds['running statistics'])} running statistics moved")
+    ep = pad_episode(test_task)
+    rec32 = copy.deepcopy(learner.recogniser).float()
+    rec32.load_state_dict(convert.load(learner.checkpoint_path_validation), strict=True)
+    rec32.dtype = rec32.extractor.dtype = torch.float32
+    ctx = torch.from_numpy(ep.context_clips).to(learner.device)
+    for dtype_name, model in (("float32", rec32), ("bfloat16", learner.recogniser)):
+        errs = []
+        with dw_launches_checked(errs), torch.inference_mode():
+            model.embed_clips(ctx)
+        worst = max(errs)
+        print(f"  {dtype_name}: #8 on the learned statistics, each of the {len(errs)} launches "
+              f"of the test task's context forward against its plain version on the same "
+              f"inputs: worst {worst:.3e} of the output's largest value (limit "
+              f"{DW_TOL[dtype_name]})")
+        if worst > DW_TOL[dtype_name]:
+            raise AssertionError(f"#8 on the learned statistics ({dtype_name}) differs from "
+                                 f"its plain version by {worst:.3e} of its output")
+    for dtype_name, model in (("float32", rec32), ("bfloat16", learner.recogniser)):
+        held = dtype_name == "float32"
+        print(f"  the test task in {dtype_name}, end to end (argmax "
+              f"{'held' if held else 'printed'}):")
+        hold_task_kernels_vs_plain(torch, model, ep, f"learn_extractor test task, {dtype_name}",
+                                   witness=True, outputs_held=False, argmax_held=held)
+    del rec32
+
+
+@contextlib.contextmanager
+def dw_launches_checked(errs: list):
+    """Every launch of #8 also runs its plain version on the same inputs
+    and appends the largest difference over the output's largest value to
+    ``errs``."""
+    from orbit_tpu_torch.ops import depthwise
+    launch = depthwise._launch
+
+    def checked(x, w, a1, b1, a2, b2, act1, act2):
+        out = launch(x, w, a1, b1, a2, b2, act1, act2)
+        ref = depthwise.fused_dw_reference(x, w, a1, b1, a2, b2, act1=act1, act2=act2).float()
+        errs.append(float((out.float() - ref).abs().max()) / max(float(ref.abs().max()), 1e-30))
+        return out
+    depthwise._launch = checked
+    try:
+        yield
+    finally:
+        depthwise._launch = launch
 
 
 def print_step_times(torch, seconds, card: str) -> None:
@@ -1517,6 +1769,75 @@ def device_breakdown(torch, fn, card: str) -> float:
     return busy
 
 
+def hold_task_kernels_vs_plain(torch, rec, ep, label: str, witness: bool,
+                               outputs_held: bool = True, argmax_held: bool = True):
+    """The padded test task ``ep`` personalised and predicted through the
+    kernels and through their plain versions (inference mode): features and
+    logits within PATH_REL_TOL of their largest value (``outputs_held``)
+    and the same argmax on ARGMAX_AGREEMENT of the real query frames
+    (``argmax_held``); what is not held is printed. For every frame whose
+    argmax flips, the plain route's top-1 to top-2 margin is printed.
+    ``witness``: also #8's plain version with its f32 stages in f64 against
+    the plain version. Returns the task's device tensors (context clips,
+    labels, mask, class mask, query clips) and the real query frames."""
+    import numpy as np
+
+    dev = rec.pixel_mean.device
+    ctx = torch.from_numpy(ep.context_clips).to(dev)
+    labels = torch.from_numpy(ep.context_labels.astype(np.int64)).to(dev)
+    mask = torch.from_numpy(ep.context_mask).to(dev)
+    class_mask = torch.from_numpy(ep.class_mask).to(dev)
+    query = torch.from_numpy(np.concatenate(ep.video_frames)[:, None]).to(dev)
+    real = np.concatenate([m > 0 for m in ep.video_masks])
+    runs = {"kernels": (None, None), "plain": ("reference", None)}
+    if witness:  # the EfficientNet: phase 7's witness, #8's f32 stages in f64
+        runs["wide"] = ("reference", functools.partial(dw_variant, wide=True))
+    out = {}
+    for run, (impl, dw_plain) in runs.items():
+        rec.impl = impl
+        with torch.inference_mode(), dw_plain_as(dw_plain):
+            state = rec.personalise(ctx, labels, mask, ep.num_classes)
+            out[run] = (rec.embed_clips(ctx, film=state["film"]),
+                        rec.predict(state, query, class_mask))
+    rec.impl = None
+    (fk, lk), (fr, lr) = out["kernels"], out["plain"]
+    if not (torch.isfinite(lk).all() and torch.isfinite(fk).all()):
+        raise AssertionError("non-finite features or logits on the kernel path")
+    present = class_mask.bool()  # padded classes hold -1e30 on both sides
+
+    def agreement(logits):
+        return float((logits.argmax(-1) == lr.argmax(-1)).cpu().numpy()[real].mean())
+    limit = PATH_REL_TOL if outputs_held else math.inf
+    for what, a, b in (("features", fk, fr), ("logits", lk[:, present], lr[:, present])):
+        max_abs, max_rel = compare(a, b, 0.0, limit * float(b.abs().max()),
+                                   f"{label} {what}")
+        print(f"  kernels vs plain, task 0 {what}: max abs {max_abs:.3e}, max rel {max_rel:.3e}")
+    agree = agreement(lk)
+    print(f"  argmax agreement on {int(real.sum())} real query frames: {agree:.4f}")
+    # the frames whose argmax flips: how close the plain route's top two
+    # logits were, against the bf16 ulp at the top logit (2^(e - 7) for a
+    # value in [2^e, 2^(e+1))) and the frame's kernels-vs-plain difference
+    flips = np.nonzero((lk.argmax(-1) != lr.argmax(-1)).cpu().numpy() & real)[0]
+    if len(flips):
+        top2 = lr[:, present].topk(2, dim=-1).values[flips].cpu()
+        diff = (lk[:, present] - lr[:, present]).abs().amax(dim=-1)[flips].cpu()
+        margin = top2[:, 0] - top2[:, 1]
+        ulp = torch.exp2(torch.floor(torch.log2(top2[:, 0].abs())) - 7)
+        print(f"  {len(flips)} flipped frames, plain top-1 minus top-2 logit (bf16 ulps of the "
+              f"top logit; the frame's largest kernels-vs-plain logit difference): "
+              + ", ".join(f"{float(m):.3e} ({float(m / u):.2f} ulp; {float(d):.3e})"
+                          for m, u, d in zip(margin, ulp, diff)))
+    if "wide" in out:
+        fw, lw = out["wide"]
+        print(f"  witness (#8's f32 stages in f64) vs plain, task 0: features max rel "
+              f"{compare(fw, fr, 0.0, math.inf, 'witness features')[1]:.3e}, logits max rel "
+              f"{compare(lw[:, present], lr[:, present], 0.0, math.inf, 'witness')[1]:.3e}, "
+              f"argmax agreement {agreement(lw):.4f}")
+    if argmax_held and agree < ARGMAX_AGREEMENT:
+        raise AssertionError(f"argmax agreement {agree:.4f} < {ARGMAX_AGREEMENT}")
+    return ctx, labels, mask, class_mask, query, real
+
+
 def eval_path_phase(torch, card: str, workdir: Path, label: str, flags: list,
                     per_forward: dict, calibrate: bool = False) -> dict:
     """Phases 4 and 6: the port's CLU-VE test protocol through the learner
@@ -1555,7 +1876,6 @@ def eval_path_phase(torch, card: str, workdir: Path, label: str, flags: list,
             calibrate_batchnorm(rec.extractor,
                                 rec._maybe_normalize(frames.to(rec.pixel_mean.device)))
     learner = SingleStepLearner(args, test_queue=TaskQueue(tasks), after_init=after_init)
-    dev = learner.device
 
     # keep every logits tensor the protocol computes, to check them after
     logits_seen = []
@@ -1612,58 +1932,8 @@ def eval_path_phase(torch, card: str, workdir: Path, label: str, flags: list,
           f"{personalise * 1e3:.2f} ms per task ({card})")
 
     # task 0 again through the kernels and through their plain versions
-    ep = eps[0]
-    ctx = torch.from_numpy(ep.context_clips).to(dev)
-    labels = torch.from_numpy(ep.context_labels.astype(np.int64)).to(dev)
-    mask = torch.from_numpy(ep.context_mask).to(dev)
-    class_mask = torch.from_numpy(ep.class_mask).to(dev)
-    query = torch.from_numpy(np.concatenate(ep.video_frames)[:, None]).to(dev)
-    real = np.concatenate([m > 0 for m in ep.video_masks])
-    runs = {"kernels": (None, None), "plain": ("reference", None)}
-    if calibrate:  # the EfficientNet: phase 7's witness, #8's f32 stages in f64
-        runs["wide"] = ("reference", functools.partial(dw_variant, wide=True))
-    out = {}
-    for run, (impl, dw_plain) in runs.items():
-        rec.impl = impl
-        with torch.inference_mode(), dw_plain_as(dw_plain):
-            state = rec.personalise(ctx, labels, mask, ep.num_classes)
-            out[run] = (rec.embed_clips(ctx, film=state["film"]),
-                        rec.predict(state, query, class_mask))
-    rec.impl = None
-    (fk, lk), (fr, lr) = out["kernels"], out["plain"]
-    if not (torch.isfinite(lk).all() and torch.isfinite(fk).all()):
-        raise AssertionError("non-finite features or logits on the kernel path")
-    present = class_mask.bool()  # padded classes hold -1e30 on both sides
-
-    def agreement(logits):
-        return float((logits.argmax(-1) == lr.argmax(-1)).cpu().numpy()[real].mean())
-    for what, a, b in (("features", fk, fr), ("logits", lk[:, present], lr[:, present])):
-        max_abs, max_rel = compare(a, b, 0.0, PATH_REL_TOL * float(b.abs().max()),
-                                   f"{label} {what}")
-        print(f"  kernels vs plain, task 0 {what}: max abs {max_abs:.3e}, max rel {max_rel:.3e}")
-    agree = agreement(lk)
-    print(f"  argmax agreement on {int(real.sum())} real query frames: {agree:.4f}")
-    # the frames whose argmax flips: how close the plain route's top two
-    # logits were, against the bf16 ulp at the top logit (2^(e - 7) for a
-    # value in [2^e, 2^(e+1))) and the frame's kernels-vs-plain difference
-    flips = np.nonzero((lk.argmax(-1) != lr.argmax(-1)).cpu().numpy() & real)[0]
-    if len(flips):
-        top2 = lr[:, present].topk(2, dim=-1).values[flips].cpu()
-        diff = (lk[:, present] - lr[:, present]).abs().amax(dim=-1)[flips].cpu()
-        margin = top2[:, 0] - top2[:, 1]
-        ulp = torch.exp2(torch.floor(torch.log2(top2[:, 0].abs())) - 7)
-        print(f"  {len(flips)} flipped frames, plain top-1 minus top-2 logit (bf16 ulps of the "
-              f"top logit; the frame's largest kernels-vs-plain logit difference): "
-              + ", ".join(f"{float(m):.3e} ({float(m / u):.2f} ulp; {float(d):.3e})"
-                          for m, u, d in zip(margin, ulp, diff)))
-    if "wide" in out:
-        fw, lw = out["wide"]
-        print(f"  witness (#8's f32 stages in f64) vs plain, task 0: features max rel "
-              f"{compare(fw, fr, 0.0, math.inf, 'witness features')[1]:.3e}, logits max rel "
-              f"{compare(lw[:, present], lr[:, present], 0.0, math.inf, 'witness')[1]:.3e}, "
-              f"argmax agreement {agreement(lw):.4f}")
-    if agree < ARGMAX_AGREEMENT:
-        raise AssertionError(f"argmax agreement {agree:.4f} < {ARGMAX_AGREEMENT}")
+    ctx, labels, mask, class_mask, query, real = hold_task_kernels_vs_plain(
+        torch, rec, eps[0], label, witness=calibrate)
 
     # the two metrics over warm repeats of task 0, timed as the protocol
     # times them (each call ended by a sync, the logits copied to the host)
@@ -2042,10 +2312,11 @@ def main(argv=None) -> int:
     rows["mahalanobis_logits"] = mahalanobis_kernel_phase(torch, card)
     rows.update(attention_kernel_phase(torch, card))
 
-    # phases 4 to 9: the ViT eval path, the ViT train path, the SimpleCNAPs
+    # phases 4 to 10: the ViT eval path, the ViT train path, the SimpleCNAPs
     # path, the SimpleCNAPs FiLM train path, the ViT-B/32-CLIP FineTuner with
-    # FiLM and the EfficientNet-B0 FineTuner frozen and with FiLM, each read
-    # alone
+    # FiLM, the EfficientNet-B0 FineTuner frozen and with FiLM, and the
+    # EfficientNet-B0 ProtoNets+LITE meta-training with --learn_extractor,
+    # each read alone
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         paths = {
             "eval": eval_path_phase(
@@ -2073,7 +2344,9 @@ def main(argv=None) -> int:
                 torch, card, Path(tmp) / "finetune_b0_film",
                 "EfficientNet-B0 FineTuner+FiLM path",
                 ["--feature_extractor", "efficientnet_b0", "--adapt_features"],
-                {"fused_dw_act": B0_DW_PER_FORWARD}, calibrate=True)}
+                {"fused_dw_act": B0_DW_PER_FORWARD}, calibrate=True),
+            "learn_extractor": train_path_phase(torch, card, Path(tmp) / "learn_extractor",
+                                                extractor="efficientnet_b0")}
     # the kernels each path must launch; a kernel's row reports the first
     # path that launches it
     path_kernels = {"eval": ["fused_qkv_attention", "fused_mlp_block"],
@@ -2083,7 +2356,8 @@ def main(argv=None) -> int:
                     "film_train": ["mahalanobis_logits", "fused_dw_act"],
                     "finetune_vit_film": ["fused_qkv_attention", "fused_mlp_block",
                                           "fused_qkv_attention_bwd", "fused_mlp_block_bwd"],
-                    "finetune_b0": ["fused_dw_act"], "finetune_b0_film": ["fused_dw_act"]}
+                    "finetune_b0": ["fused_dw_act"], "finetune_b0_film": ["fused_dw_act"],
+                    "learn_extractor": ["fused_dw_act"]}
     path_of = {}
     for path, names in path_kernels.items():
         unused = [n for n in names if paths[path][n] < 1]

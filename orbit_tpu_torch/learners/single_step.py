@@ -24,14 +24,23 @@ recogniser. Differences from the JAX learner:
   the task's real context rows (``utils/ops_counter.py``), where the JAX
   learner interpolates XLA cost analyses.
 Not ported yet, and refused with an error: ``--data_parallel``/
-``--task_parallel`` > 1, ``--profile_dir``, ``--pretrained_extractor_path``,
-the ``linear`` head (the multi-step learner's), and in the train modes
-``--learn_extractor`` on an EfficientNet (masked BatchNorm batch
-statistics are a later slice). Every mode runs CNAPs (``--adapt_features
---classifier versa``) and SimpleCNAPs (``--adapt_features --classifier
-mahalanobis``) on every backbone: meta-training updates the set encoder,
-the FiLM generator and the Versa processors with the extractor frozen (and
-an EfficientNet's BatchNorms in eval mode), with or without LITE.
+``--task_parallel`` > 1, ``--profile_dir``, ``--pretrained_extractor_path``
+and the ``linear`` head (the multi-step learner's). Every mode runs CNAPs
+(``--adapt_features --classifier versa``) and SimpleCNAPs
+(``--adapt_features --classifier mahalanobis``) on every backbone:
+meta-training updates the set encoder, the FiLM generator and the Versa
+processors with the extractor frozen (and an EfficientNet's BatchNorms in
+eval mode), with or without LITE.
+
+``--learn_extractor`` meta-trains the extractor too, on every backbone. On
+an EfficientNet its BatchNorms then run on the batch statistics of each
+forward's real rows (train mode is ported: ``models/backbones/masked_bn.py``,
+with every depthwise tail composed), and their running statistics update on
+every task, in the JAX step's order, while the gradients accumulate over
+``tasks_per_batch`` tasks (orbit_tpu/learners/single_step.py:275).
+Validation and test run in eval mode on the updated statistics, through
+#8's folded affine; the checkpoints and ``--resume_from`` carry them, as
+buffers of the state dict.
 """
 from __future__ import annotations
 
@@ -70,10 +79,6 @@ def check_ported(args, heads=tuple(CONFIGURE)) -> None:
         refused.append(f"--task_parallel {args.task_parallel}")
     if args.classifier not in heads:
         refused.append(f"--classifier {args.classifier}")
-    effnet = args.feature_extractor.startswith("efficientnet")
-    if "train" in args.mode and args.learn_extractor and effnet:
-        refused.append(f"--learn_extractor on {args.feature_extractor} (a later slice: "
-                       f"masked BatchNorm batch statistics)")
     for flag in ("profile_dir", "pretrained_extractor_path"):
         if getattr(args, flag, None):
             refused.append(f"--{flag}")

@@ -1,6 +1,7 @@
 """EfficientNet-B0 and EfficientNetV2-S in PyTorch, NHWC, TF-SAME padding,
-eval mode (counterpart of ``orbit_tpu/models/backbones/efficientnet.py``;
-reference: model/feature_extractors.py:39-48, timm tf_efficientnet_b0 and
+eval and train mode (counterpart of
+``orbit_tpu/models/backbones/efficientnet.py``; reference:
+model/feature_extractors.py:39-48, timm tf_efficientnet_b0 and
 tf_efficientnetv2_s_in21k).
 
 One generic trunk: stem conv -> BN -> SiLU -> the arch's blocks -> 1x1 head
@@ -25,19 +26,30 @@ route the port always takes:
 Activations stay NHWC-contiguous throughout, so the kernel reads them with
 no copy.
 
+Train mode (``forward(x, train=True, mask=...)``, the meta-training of
+``--learn_extractor``) runs every BatchNorm on the batch statistics of the
+rows ``mask`` marks real (``masked_bn.py``) and returns the updated running
+statistics beside the features, without writing the buffers. Every
+depthwise tail takes the composed route there, as the JAX package does
+(orbit_tpu efficientnet.py:170,232: ``DW_FUSED and not train``): bn2's batch
+statistics exist only after the depthwise convolution, so #8, which takes
+bn2 as an affine folded before it runs, cannot fuse that tail. A train-mode
+forward launches no kernel.
+
 FiLM: ``forward(x, film)`` takes a dict of overrides keyed by the dotted
 parameter names of :func:`efficientnet_film_spec` (``bn1.scale``,
 ``blocks_1_0.bn2.bias``, ...) and applies them for that call only.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from orbit_tpu_torch.models.backbones.masked_bn import Film, MaskedBatchNorm
+from orbit_tpu_torch.models.backbones.masked_bn import (BatchStats, Film, MaskedBatchNorm,
+                                                       Stats, running_stats)
 from orbit_tpu_torch.models.backbones.vit import _lecun_normal_
 from orbit_tpu_torch.ops.depthwise import fused_dw_act, tf_same_pads
 
@@ -120,8 +132,8 @@ class ConvBnAct(nn.Module):
         self.conv = Conv(k, in_chs, out_chs, stride)
         self.bn1 = MaskedBatchNorm(out_chs, eps, f"{path}.bn1")
 
-    def forward(self, x, film=None):
-        y = F.silu(self.bn1(self.conv(x), film))
+    def forward(self, x, film=None, batch=None):
+        y = F.silu(self.bn1(self.conv(x), film, batch))
         return y + x if self.residual else y
 
 
@@ -136,18 +148,18 @@ class DepthwiseSeparable(nn.Module):
         self.conv_pw = Conv(1, in_chs, out_chs)
         self.bn2 = MaskedBatchNorm(out_chs, eps, f"{path}.bn2")
 
-    def forward(self, x, film=None, impl=None):
+    def forward(self, x, film=None, impl=None, batch=None):
         shortcut = x
-        if self.fused and impl != "composed":
+        if self.fused and impl != "composed" and batch is None:
             a1, b1 = self.bn1.fold(film)
             x = fused_dw_act(x, self.conv_dw.kernel, torch.ones_like(a1),
                              torch.zeros_like(b1), a1, b1, act1=False, act2=True,
                              impl=impl)
         else:
-            x = F.silu(self.bn1(self.conv_dw(x), film))
+            x = F.silu(self.bn1(self.conv_dw(x), film, batch))
         if self.se is not None:
             x = self.se(x)
-        x = self.bn2(self.conv_pw(x), film)
+        x = self.bn2(self.conv_pw(x), film, batch)
         return x + shortcut if self.residual else x
 
 
@@ -161,9 +173,9 @@ class EdgeResidual(nn.Module):
         self.conv_pwl = Conv(1, mid, out_chs)
         self.bn2 = MaskedBatchNorm(out_chs, eps, f"{path}.bn2")
 
-    def forward(self, x, film=None):
-        y = F.silu(self.bn1(self.conv_exp(x), film))
-        y = self.bn2(self.conv_pwl(y), film)
+    def forward(self, x, film=None, batch=None):
+        y = F.silu(self.bn1(self.conv_exp(x), film, batch))
+        y = self.bn2(self.conv_pwl(y), film, batch)
         return y + x if self.residual else y
 
 
@@ -181,18 +193,18 @@ class InvertedResidual(nn.Module):
         self.conv_pwl = Conv(1, mid, out_chs)
         self.bn3 = MaskedBatchNorm(out_chs, eps, f"{path}.bn3")
 
-    def forward(self, x, film=None, impl=None):
+    def forward(self, x, film=None, impl=None, batch=None):
         shortcut = x
         x = self.conv_pw(x)
-        if self.fused and impl != "composed":
+        if self.fused and impl != "composed" and batch is None:
             x = fused_dw_act(x, self.conv_dw.kernel, *self.bn1.fold(film),
                              *self.bn2.fold(film), act1=True, act2=True, impl=impl)
         else:
-            x = F.silu(self.bn1(x, film))
-            x = F.silu(self.bn2(self.conv_dw(x), film))
+            x = F.silu(self.bn1(x, film, batch))
+            x = F.silu(self.bn2(self.conv_dw(x), film, batch))
         if self.se is not None:
             x = self.se(x)
-        x = self.bn3(self.conv_pwl(x), film)
+        x = self.bn3(self.conv_pwl(x), film, batch)
         return x + shortcut if self.residual else x
 
 
@@ -221,7 +233,13 @@ class EfficientNet(nn.Module):
     recomputing backward or as plain autograd ops) or "composed" (unfused
     BatchNorms around a grouped conv); ``forward(impl=...)`` overrides it
     for one call. ``forward_calls`` counts forwards (one per
-    feature-extraction chunk)."""
+    feature-extraction chunk).
+
+    ``train=True`` runs every BatchNorm on batch statistics over the rows
+    that the float (N,) ``mask`` marks real (all rows without one), starting
+    from the running statistics ``stats`` (by BatchNorm path; the buffers'
+    values if not given), and returns (features, updated statistics); the
+    buffers are not written (``masked_bn.load_running_stats``)."""
 
     def __init__(self, arch: Sequence[Tuple] = tuple(B0_ARCH), stem_chs: int = 32,
                  head_chs: int = 1280, bn_eps: float = BN_EPS_TF, dtype=torch.float32):
@@ -251,15 +269,21 @@ class EfficientNet(nn.Module):
             if isinstance(m, (Conv, MaskedBatchNorm)):
                 m.reset_parameters(g)
 
-    def forward(self, x: torch.Tensor, film: Film = None, impl: str | None = None):
+    def forward(self, x: torch.Tensor, film: Film = None, impl: str | None = None,
+                train: bool = False, mask: Optional[torch.Tensor] = None,
+                stats: Optional[Stats] = None):
         self.forward_calls += 1
         impl = self.impl if impl is None else impl
-        x = F.silu(self.bn1(self.conv_stem(x.to(self.dtype).contiguous()), film))
+        batch = BatchStats(running_stats(self) if stats is None else stats,
+                           mask) if train else None
+        x = F.silu(self.bn1(self.conv_stem(x.to(self.dtype).contiguous()), film, batch))
         for name in self.block_names:
             block = getattr(self, name)
-            x = block(x, film, impl) if isinstance(block, DW_BLOCKS) else block(x, film)
-        x = F.silu(self.bn2(self.conv_head(x), film))
-        return x.mean(dim=(1, 2)).float()
+            x = (block(x, film, impl, batch) if isinstance(block, DW_BLOCKS)
+                 else block(x, film, batch))
+        x = F.silu(self.bn2(self.conv_head(x), film, batch))
+        features = x.mean(dim=(1, 2)).float()
+        return (features, batch.new) if train else features
 
 
 @torch.no_grad()

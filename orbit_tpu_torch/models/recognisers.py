@@ -19,7 +19,22 @@ Meta-training (``learners/steps.py``) embeds with ``with_grad=True``: above
 ``batch_size`` frames each chunk runs under ``torch.utils.checkpoint``,
 where the JAX package rematerialises its chunks with ``jax.checkpoint``
 (orbit_tpu/models/recognisers.py:200-205), so activation memory stays one
-chunk's. The ViTs have no BatchNorm, so train mode changes no forward.
+chunk's.
+
+Train mode (``train=True``: meta-training with ``--learn_extractor``)
+runs an EfficientNet's BatchNorms on batch statistics (orbit_tpu
+recognisers.py:133-232): each chunk's statistics cover that chunk's real
+rows only (the clip mask, expanded to frames; the port's ragged tail chunk
+then equals the JAX package's zero-padded one), and the running statistics
+pass from one chunk to the next in order. As the JAX package's
+``run_stateful(stats, chunk, mask)``, the chunk function takes its incoming
+running statistics as an argument and returns the new ones, detached; the
+loop loads them into the buffers after the chunk's forward, never inside
+the region that ``torch.utils.checkpoint`` recomputes, so a recompute
+neither updates the statistics twice nor sees later ones than its forward
+saw. The depthwise tails are composed in train mode (``efficientnet.py``),
+so #8 runs only in the eval forwards. The ViTs have no BatchNorm, so train
+mode changes no ViT forward.
 
 FiLM (``adapt_features``, CNAPs and SimpleCNAPs; reference:
 few_shot_recognisers.py:313-326,361-386,439-451): ``personalise`` first
@@ -57,6 +72,8 @@ from torch.utils.checkpoint import checkpoint
 from orbit_tpu_torch.data.index import NORMALIZE_STATS
 from orbit_tpu_torch.models import heads as heads_lib
 from orbit_tpu_torch.models.backbones import create_feature_extractor
+from orbit_tpu_torch.models.backbones.efficientnet import EfficientNet
+from orbit_tpu_torch.models.backbones.masked_bn import load_running_stats, running_stats
 from orbit_tpu_torch.models.film import (FilmParameterGenerator, film_values_from_initial,
                                          get_initial_film_values)
 from orbit_tpu_torch.models.poolers import mean_pool_clips
@@ -139,31 +156,60 @@ class FewShotRecogniser(nn.Module):
         x = frames.float() / 255.0
         return ((x - self.pixel_mean) / self.pixel_std).to(self.dtype)
 
-    def _embed_chunk(self, frames: torch.Tensor, film=None) -> torch.Tensor:
+    @property
+    def has_batch_norm(self) -> bool:
+        """Whether train mode changes the extractor's forward (the
+        EfficientNets' BatchNorms; the ViTs have none)."""
+        return isinstance(self.extractor, EfficientNet)
+
+    def _embed_chunk(self, frames: torch.Tensor, film=None, mask=None, stats=None):
+        """One chunk's features; with ``stats`` (train mode), (features,
+        updated running statistics) over the chunk's rows that ``mask``
+        marks real, starting from ``stats``."""
         x = self._maybe_normalize(frames)
+        if stats is not None:
+            return self.extractor(x, film, train=True, mask=mask, stats=stats)
         return self.extractor(x) if film is None else self.extractor(x, film)
 
     def embed_frames(self, frames: torch.Tensor, with_grad: bool = False,
-                     film=None) -> torch.Tensor:
+                     film=None, train: bool = False,
+                     frame_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(N, H, W, 3) -> (N, D) f32 features, ``batch_size`` frames at a
         time, under the FiLM values ``film`` if given. ``with_grad=False``
         records no graph; with gradients and more than one chunk, each chunk
-        is recomputed in the backward (``torch.utils.checkpoint``)."""
+        is recomputed in the backward (``torch.utils.checkpoint``).
+        ``train`` runs the BatchNorms on the statistics of each chunk's
+        frames that ``frame_mask`` marks real (all frames without one) and
+        updates the running statistics chunk by chunk."""
         n, b = frames.shape[0], self.batch_size
-        chunks = [frames[i:i + b] for i in range(0, n, b)]
+        train = train and self.has_batch_norm
+        stats = running_stats(self.extractor) if train else None
+        feats = []
         with torch.set_grad_enabled(with_grad and torch.is_grad_enabled()):
-            if torch.is_grad_enabled() and len(chunks) > 1:
-                feats = [checkpoint(self._embed_chunk, c, film, use_reentrant=False)
-                         for c in chunks]
-            else:
-                feats = [self._embed_chunk(c, film) for c in chunks]
+            recompute = torch.is_grad_enabled() and n > b
+            for i in range(0, n, b):
+                args = (frames[i:i + b], film)
+                if train:
+                    args += (None if frame_mask is None else frame_mask[i:i + b], stats)
+                out = (checkpoint(self._embed_chunk, *args, use_reentrant=False)
+                       if recompute else self._embed_chunk(*args))
+                if train:  # the next chunk starts from this one's statistics
+                    out, stats = out
+                feats.append(out)
+            if train:
+                load_running_stats(self.extractor, stats)
             return torch.cat(feats).float()
 
     def embed_clips(self, clips: torch.Tensor, with_grad: bool = False,
-                    film=None) -> torch.Tensor:
-        """(N, T, H, W, 3) -> (N, D): frame features mean-pooled per clip."""
+                    film=None, train: bool = False,
+                    clip_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(N, T, H, W, 3) -> (N, D): frame features mean-pooled per clip;
+        in train mode ``clip_mask`` marks the real clips for the BatchNorm
+        statistics."""
         n, t = clips.shape[:2]
-        feats = self.embed_frames(clips.reshape(n * t, *clips.shape[2:]), with_grad, film)
+        frame_mask = None if clip_mask is None or not train else clip_mask.repeat_interleave(t)
+        feats = self.embed_frames(clips.reshape(n * t, *clips.shape[2:]), with_grad, film,
+                                  train, frame_mask)
         return mean_pool_clips(feats, t)
 
     # ------------------------------------------------------ set encoding ----
@@ -218,39 +264,46 @@ class SingleStepFewShotRecogniser(FewShotRecogniser):
 
     # ----------------------------------------------------- personalise ----
     def personalise(self, context_clips, context_labels, context_mask,
-                    num_classes: int, with_grad: bool = False) -> TaskState:
+                    num_classes: int, with_grad: bool = False,
+                    train: bool = False) -> TaskState:
         """Task embedding -> FiLM (when ``adapt_features``) -> context
         features -> head (reference: personalise,
         few_shot_recognisers.py:313-326). ``with_grad`` records the
         extractor's graph; the set encoder and the generator record one
-        whenever autograd does."""
+        whenever autograd does. ``train``: the extractor's BatchNorms on the
+        real context clips' batch statistics, updating the running ones."""
         film, film_l2 = None, torch.zeros((), device=context_clips.device)
         if self.adapt_features:
             film, film_l2 = self.generate_film(self.task_embedding(context_clips,
                                                                    context_mask))
-        feats = self.embed_clips(context_clips, with_grad, film)
+        feats = self.embed_clips(context_clips, with_grad, film, train, context_mask)
         return {"film": film, "film_l2": film_l2,
                 "head": self.configure_head(feats, context_labels, context_mask,
                                             num_classes)}
 
-    def lite_caches(self, context_clips, context_mask) -> Dict[str, torch.Tensor]:
+    def lite_caches(self, context_clips, context_mask,
+                    train: bool = False) -> Dict[str, torch.Tensor]:
         """LITE's per-task caches, computed without a graph (reference:
         few_shot_recognisers.py:404-437): with FiLM, ``reps`` (N, T, 64),
         the set encoder's reps of every context frame; and ``feats`` (N, D),
         every context clip's features under the FiLM values of the cached
-        task embedding."""
+        task embedding. ``train``: the cache pass runs the BatchNorms on
+        batch statistics and updates the running ones (orbit_tpu
+        learners/steps.py:276-285)."""
         caches, film = {}, None
         with torch.no_grad():
             if self.adapt_features:
                 caches["reps"] = self.encode_set_clips(context_clips)
                 film, _ = self.generate_film(self.masked_set_mean(caches["reps"],
                                                                   context_mask))
-            caches["feats"] = self.embed_clips(context_clips, film=film)
+            caches["feats"] = self.embed_clips(context_clips, film=film, train=train,
+                                               clip_mask=context_mask)
         return caches
 
     def personalise_with_lite(self, context_clips, context_labels, context_mask,
                               num_classes: int, grad_idxs: torch.Tensor,
-                              caches: Optional[Dict[str, torch.Tensor]] = None) -> TaskState:
+                              caches: Optional[Dict[str, torch.Tensor]] = None,
+                              train: bool = False) -> TaskState:
         """LITE personalise (reference: personalise_with_lite,
         few_shot_recognisers.py:328-343,388-437): the context clips at
         ``grad_idxs`` are recomputed with gradients and scattered into the
@@ -259,16 +312,20 @@ class SingleStepFewShotRecogniser(FewShotRecogniser):
         generates the FiLM values, then their features under those values;
         the head is configured on the mixed features. The meta-training
         step computes the caches once per task and calls this once per
-        target batch (orbit_tpu/learners/steps.py:191-225)."""
+        target batch (orbit_tpu/learners/steps.py:191-225). ``train``: the
+        subset's forward (and the caches', if computed here) runs the
+        BatchNorms on the batch statistics of the subset's real clips and
+        updates the running ones (orbit_tpu steps.py:226-240)."""
         if caches is None:
-            caches = self.lite_caches(context_clips, context_mask)
+            caches = self.lite_caches(context_clips, context_mask, train)
         idx = grad_idxs.to(device=context_clips.device, dtype=torch.long)
         subset = context_clips[idx]
         film, film_l2 = None, torch.zeros((), device=context_clips.device)
         if self.adapt_features:
             reps = caches["reps"].index_copy(0, idx, self.encode_set_clips(subset))
             film, film_l2 = self.generate_film(self.masked_set_mean(reps, context_mask))
-        grad_feats = self.embed_clips(subset, with_grad=True, film=film)
+        grad_feats = self.embed_clips(subset, with_grad=True, film=film, train=train,
+                                      clip_mask=context_mask[idx])
         feats = caches["feats"].index_copy(0, idx, grad_feats)
         return {"film": film, "film_l2": film_l2,
                 "head": self.configure_head(feats, context_labels, context_mask,
@@ -276,8 +333,12 @@ class SingleStepFewShotRecogniser(FewShotRecogniser):
 
     def predict(self, task_state: TaskState, clips,
                 class_mask: Optional[torch.Tensor] = None,
-                with_grad: bool = False) -> torch.Tensor:
-        feats = self.embed_clips(clips, with_grad, task_state["film"])
+                with_grad: bool = False, train: bool = False,
+                clip_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Logits of ``clips`` under the task state; ``train``: the
+        BatchNorms on the batch statistics of the clips ``clip_mask`` marks
+        real, updating the running ones."""
+        feats = self.embed_clips(clips, with_grad, task_state["film"], train, clip_mask)
         return self.head_logits(task_state["head"], feats, class_mask)
 
 
