@@ -130,7 +130,11 @@ Phases, each of which passes or raises:
    first one, which picks cuDNN's algorithms). The counters must show #8
    in all 12 stride-1 tails of every eval forward (validation and test, on
    the learned statistics) and in no train-mode forward; every extractor
-   parameter and running statistic must move. On the trained model: each
+   parameter and running statistic must move. On the trained model: one
+   f32 eval forward on the learned statistics on the card against the
+   same forward on the CPU, stage by stage (stem, each block, head, each
+   fed the CPU's input), every stage within 2e-4 of its largest value, as
+   the step is held; each
    launch of #8 against its plain version on the same inputs (phase 3's
    limits, f32 and bf16), and the test task end to end through the kernels
    against their plain versions, its argmax on 99% of the real query
@@ -138,12 +142,28 @@ Phases, each of which passes or raises:
    (random weights on learned statistics amplify a change of rounding:
    the features and logits are printed); the median and range of the time
    per task step and the peak device memory.
+11. pretrained weights through the CLIs: for each upstream format a fake
+   checkpoint at the published width and depth, made from ``--seed`` in
+   that upstream's key layout (independently of the converter), converted
+   by ``scripts/convert_checkpoint_torch.py`` into a flax ``.ckpt`` and
+   run in ``--mode test`` by phase 4's protocol, tasks and checks (bf16,
+   batch 256, 224 px; 3 warm repeats, traced only in (a)): (a) ViT-S/32
+   from a timm ``.pth``, proto, with ``--profile_dir``, whose Chrome trace
+   must name kernels A and B; (b) ViT-B/32 from an augreg ``.npz``, proto_cosine;
+   (c) ViT-B/32-CLIP from an open_clip ``.bin`` through the multi-step
+   learner (the FineTuner, frozen; phase 8's checks); (d) EfficientNetV2-S
+   from a timm ``.pth`` with the Mahalanobis head, its BatchNorms
+   calibrated after the load (#8 in its 28 stride-1 tails, #7); (e) an
+   EfficientNet-B0 CNAPs reference recogniser (``--full_model``: set
+   encoder, FiLM generator, Versa) through ``--model_path``, calibrated
+   after the load. Each run holds a handful of loaded leaves to the
+   upstream tensors after their transposes, bit for bit.
 
 The line before the last is ``{"kernels": [...]}`` (launches: kernels A and
 B from phase 4, #4 and #6 from phase 5, #7 and #8 from phase 6; #1 and #2
-are on no path and report their launches over phases 4 to 10 together,
+are on no path and report their launches over phases 4 to 11 together,
 which must be 0; their checks and times are phase 3's; ``launches_by_path``
-gives every kernel's launches on each path, phases 8 to 10's paths
+gives every kernel's launches on each path, phases 8 to 11's paths
 included, ``gemm_ms`` the cuBLAS yardstick of A, B, #4 and #6); the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
@@ -1256,7 +1276,7 @@ def train_path_phase(torch, card: str, workdir: Path, extractor: str = "vit_b_32
         raise AssertionError("the test protocol after training wrote no results.json")
     if effnet:
         effnet_train_checks(torch, learner, launches, forwards, initial, test_tasks[0],
-                            len(train_tasks) + 2 * sum(batches))
+                            len(train_tasks) + 2 * sum(batches), card)
     else:
         vit_train_checks(launches, forwards["eval"] + forwards["train"], batches, batch,
                          num_lite, train_tasks)
@@ -1428,7 +1448,7 @@ def card_vs_cpu_step(torch, learner, task: dict, card: str) -> None:
 
 
 def effnet_train_checks(torch, learner, launches: dict, forwards: dict, initial: dict,
-                        test_task: dict, train_forwards: int) -> None:
+                        test_task: dict, train_forwards: int, card: str) -> None:
     """Phase 10's checks after the run: #8 in all 12 stride-1 tails of every
     eval forward (validation and test, on the learned statistics) and in no
     train-mode forward (``train_forwards``: per task the cache pass and two
@@ -1474,6 +1494,7 @@ def effnet_train_checks(torch, learner, launches: dict, forwards: dict, initial:
     rec32.load_state_dict(convert.load(learner.checkpoint_path_validation), strict=True)
     rec32.dtype = rec32.extractor.dtype = torch.float32
     ctx = torch.from_numpy(ep.context_clips).to(learner.device)
+    card_vs_cpu_eval_forward(torch, rec32, ctx[:16, 0], card)
     for dtype_name, model in (("float32", rec32), ("bfloat16", learner.recogniser)):
         errs = []
         with dw_launches_checked(errs), torch.inference_mode():
@@ -1493,6 +1514,57 @@ def effnet_train_checks(torch, learner, launches: dict, forwards: dict, initial:
         hold_task_kernels_vs_plain(torch, model, ep, f"learn_extractor test task, {dtype_name}",
                                    witness=True, outputs_held=False, argmax_held=held)
     del rec32
+
+
+def card_vs_cpu_eval_forward(torch, rec, frames, card: str) -> None:
+    """One f32 eval forward of the EfficientNet on its learned statistics
+    (``rec``: the f32 recogniser the test protocol ran last) on the card
+    against the same forward on the CPU, stage by stage: the stem, each
+    block and the head, each fed the CPU's output of the stage before it, so
+    that random weights on learned statistics (PERF.md §6, PR 10) do not
+    amplify a difference from one stage to the next. Each stage's output is
+    held to F32_PATH_GRAD_TOL of its largest value, as card_vs_cpu_step
+    holds the step: in f32 the two sides differ in summation order only
+    (the card runs #8 in the stride-1 tails, the CPU its plain version), so
+    a fault in the eval route of masked BatchNorm on the card (its folded
+    affine, its statistics) would show. The end-to-end features are printed
+    beside."""
+    import copy
+
+    import torch.nn.functional as F
+
+    def stages(ext):
+        out = [("stem", lambda x: F.silu(ext.bn1(ext.conv_stem(x), None, None)))]
+        out += [(name, getattr(ext, name)) for name in ext.block_names]
+        out.append(("head", lambda x: F.silu(ext.bn2(ext.conv_head(x), None, None))
+                    .mean(dim=(1, 2))))
+        return out
+
+    x = rec._maybe_normalize(frames).float()
+    cpu = copy.deepcopy(rec.extractor).cpu()
+    worst, inputs, outputs = ("stem", 0.0), [], []
+    with torch.inference_mode():
+        h = x.cpu()
+        for _, fn in stages(cpu):
+            inputs.append(h)
+            h = fn(h)
+            outputs.append(h)
+        for (name, fn), inp, ref in zip(stages(rec.extractor), inputs, outputs):
+            ours = fn(inp.to(x.device)).cpu()
+            if not torch.isfinite(ours).all():
+                raise AssertionError(f"f32 eval forward on the card: non-finite {name}")
+            rel = float((ours - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+            if rel > worst[1]:
+                worst = (name, rel)
+        whole = rec.extractor(x).cpu()
+    end = float((whole - outputs[-1]).abs().max()) / max(float(outputs[-1].abs().max()), 1e-30)
+    print(f"  f32 eval forward on the learned statistics, {x.shape[0]} test frames, card vs "
+          f"CPU stage by stage ({len(outputs)} stages, each fed the CPU's input): worst "
+          f"{worst[1]:.3e} of the stage's largest value ({worst[0]}; limit {F32_PATH_GRAD_TOL}); "
+          f"end to end, features {end:.3e} apart (printed) ({card})")
+    if worst[1] > F32_PATH_GRAD_TOL:
+        raise AssertionError(f"f32 eval forward, card vs CPU: {worst[0]} differs by "
+                             f"{worst[1]:.3e} of its largest value, more than {F32_PATH_GRAD_TOL}")
 
 
 @contextlib.contextmanager
@@ -1839,7 +1911,8 @@ def hold_task_kernels_vs_plain(torch, rec, ep, label: str, witness: bool,
 
 
 def eval_path_phase(torch, card: str, workdir: Path, label: str, flags: list,
-                    per_forward: dict, calibrate: bool = False) -> dict:
+                    per_forward: dict, calibrate: bool = False, repeats: int = PATH_REPEATS,
+                    traced: bool = True, after_construct=None, after_load=None) -> dict:
     """Phases 4 and 6: the port's CLU-VE test protocol through the learner
     (bf16, batch 256, 224 px, ``flags`` naming the model) on two synthetic
     tasks, to ``results.json``. Every extractor forward (one per chunk of at
@@ -1848,12 +1921,16 @@ def eval_path_phase(torch, card: str, workdir: Path, label: str, flags: list,
     kernel must run once per predict call. ``calibrate`` sets the
     EfficientNet's BatchNorm statistics from the first task's frames after
     each weight draw. Then task 0 is rerun through the kernels and through
-    their plain versions, repeated warm for the metrics' median, and traced
-    once."""
+    their plain versions, repeated warm ``repeats`` times for the metrics'
+    median, and traced once (``traced``). ``after_construct`` is given the
+    learner before its run; ``after_load`` the recogniser after each load of
+    ``--model_path`` (its BatchNorm calibration, where the loaded statistics
+    replace the calibrated ones)."""
     import numpy as np
 
     from orbit_tpu_torch.data.episodes import pad_episode
     from orbit_tpu_torch.kernels import build as kbuild
+    from orbit_tpu_torch.learners import single_step
     from orbit_tpu_torch.learners.single_step import SingleStepLearner
     from orbit_tpu_torch.models.backbones.efficientnet import calibrate_batchnorm
     from orbit_tpu_torch.models.recognisers import SingleStepFewShotRecogniser
@@ -1876,6 +1953,8 @@ def eval_path_phase(torch, card: str, workdir: Path, label: str, flags: list,
             calibrate_batchnorm(rec.extractor,
                                 rec._maybe_normalize(frames.to(rec.pixel_mean.device)))
     learner = SingleStepLearner(args, test_queue=TaskQueue(tasks), after_init=after_init)
+    if after_construct is not None:
+        after_construct(learner)
 
     # keep every logits tensor the protocol computes, to check them after
     logits_seen = []
@@ -1886,7 +1965,18 @@ def eval_path_phase(torch, card: str, workdir: Path, label: str, flags: list,
         logits_seen.append(out)
         return out
 
+    load = single_step.maybe_load_params
+
+    def load_then(path, recogniser, logfile=None):
+        used = load(path, recogniser, logfile)
+        if used is None:
+            raise AssertionError(f"--model_path {path} was not loaded")
+        after_load(recogniser)
+        return used
+
     SingleStepFewShotRecogniser.predict = predict_kept
+    if after_load is not None:
+        single_step.maybe_load_params = load_then
     kbuild.reset_launch_counts()
     t0 = time.perf_counter()
     try:
@@ -1894,6 +1984,7 @@ def eval_path_phase(torch, card: str, workdir: Path, label: str, flags: list,
         torch.cuda.synchronize()
     finally:
         SingleStepFewShotRecogniser.predict = predict
+        single_step.maybe_load_params = load
     wall = time.perf_counter() - t0
     launches = dict(kbuild.LAUNCHES)
     if not logits_seen or not all(bool(torch.isfinite(t).all()) for t in logits_seen):
@@ -1938,7 +2029,7 @@ def eval_path_phase(torch, card: str, workdir: Path, label: str, flags: list,
     # the two metrics over warm repeats of task 0, timed as the protocol
     # times them (each call ended by a sync, the logits copied to the host)
     seconds = {"personalise": [], "predict": []}
-    for _ in range(PATH_REPEATS):
+    for _ in range(repeats):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state = learner.personalise_fn(ctx, labels, mask, class_mask)
@@ -1950,14 +2041,15 @@ def eval_path_phase(torch, card: str, workdir: Path, label: str, flags: list,
         seconds["predict"].append(t2 - t1)
     fps = [int(real.sum()) / t for t in seconds["predict"]]
     pers = [1e3 * t for t in seconds["personalise"]]
-    print(f"  task 0 repeated {PATH_REPEATS}x, warm: query frames/s median "
+    print(f"  task 0 repeated {repeats}x, warm: query frames/s median "
           f"{statistics.median(fps):.1f} ({min(fps):.1f}-{max(fps):.1f}); time to personalise "
           f"median {statistics.median(pers):.2f} ms ({min(pers):.2f}-{max(pers):.2f}) ({card})")
 
     def warm_task():
         learner.predict_fn(learner.personalise_fn(ctx, labels, mask, class_mask), query,
                            class_mask)
-    device_breakdown(torch, warm_task, card)
+    if traced:
+        device_breakdown(torch, warm_task, card)
     return launches
 
 
@@ -1992,7 +2084,8 @@ def finetune_dw_breakdown(torch, card: str, rows: int, steps: int) -> None:
 
 def finetuner_phase(torch, card: str, workdir: Path, label: str, flags: list,
                     per_forward: dict, per_backward: dict | None = None,
-                    calibrate: bool = False) -> dict:
+                    calibrate: bool = False, repeats: int = FT_REPEATS, traced: bool = True,
+                    after_construct=None) -> dict:
     """Phases 8 and 9: the port's FineTuner through the multi-step learner
     (``--mode test --classifier linear``, ``flags`` naming the model, bf16,
     batch 256, 224 px, the CLI's defaults: 50 Adam steps at lr 0.001) over
@@ -2016,7 +2109,8 @@ def finetuner_phase(torch, card: str, workdir: Path, label: str, flags: list,
     no other kernel; every task's head (and FiLM leaves) must move, and the
     results must carry ``task_macs_to_personalise``. Then task 0 repeated
     warm for the metrics, and a personalise of TRACE_STEPS inner steps
-    traced; on a ViT, #4 and #6 by launch at the FineTuner's batch."""
+    traced (``traced``); on a ViT, #4 and #6 by launch at the FineTuner's
+    batch. ``after_construct`` is given the learner before the checks."""
     import numpy as np
 
     from orbit_tpu_torch.data.episodes import pad_episode
@@ -2048,6 +2142,8 @@ def finetuner_phase(torch, card: str, workdir: Path, label: str, flags: list,
             calibrate_batchnorm(rec.extractor,
                                 rec._maybe_normalize(frames.to(rec.pixel_mean.device)))
     learner = MultiStepLearner(args, test_queue=TaskQueue(tasks), after_init=after_init)
+    if after_construct is not None:
+        after_construct(learner)
     rec, dev = learner.recogniser, learner.device
     film = rec.adapt_features
     marks.append(("set-up", time.perf_counter()))
@@ -2215,7 +2311,7 @@ def finetuner_phase(torch, card: str, workdir: Path, label: str, flags: list,
 
     marks.append(("the run and its checks", time.perf_counter()))
     seconds = {"personalise": [], "predict": []}
-    for _ in range(FT_REPEATS):
+    for _ in range(repeats):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         tp = learner.personalise_fn(*ctx)
@@ -2226,9 +2322,15 @@ def finetuner_phase(torch, card: str, workdir: Path, label: str, flags: list,
         seconds["predict"].append(time.perf_counter() - t1)
     fps = [int(real.sum()) / t for t in seconds["predict"]]
     pers = seconds["personalise"]
-    print(f"  task 0 repeated {FT_REPEATS}x, warm: time to personalise median "
+    print(f"  task 0 repeated {repeats}x, warm: time to personalise median "
           f"{statistics.median(pers):.2f} ms ({min(pers):.2f}-{max(pers):.2f}); query frames/s "
           f"median {statistics.median(fps):.1f} ({min(fps):.1f}-{max(fps):.1f}) ({card})")
+    if not traced:
+        marks.append(("repeats", time.perf_counter()))
+        print("  phase time: " + ", ".join(
+            f"{label} {t - before:.1f} s"
+            for (label, t), before in zip(marks, [started] + [t for _, t in marks])))
+        return launches
     # the trace: a personalise of TRACE_STEPS inner steps (the profiler's
     # own work on a 50-step personalise's 10^5 launches takes tens of
     # seconds), whose untraced time is taken first; the profiler's host work
@@ -2255,6 +2357,402 @@ def finetuner_phase(torch, card: str, workdir: Path, label: str, flags: list,
         f"{label} {t - before:.1f} s"
         for (label, t), before in zip(marks, [started] + [t for _, t in marks])))
     return launches
+
+
+# ---------------------------------------------------------------- phase 11 ----
+# Fake upstream checkpoints at the published widths and depths, made from
+# the seed in each upstream's own key layout, independently of the
+# converter: the maps under test (orbit_tpu_torch/models/convert.py) must
+# turn them into the port's parameters.
+def _normal(rng, scale: float = 0.02):
+    import numpy as np
+
+    def draw(*shape, s=scale):
+        return (s * rng.standard_normal(shape, dtype=np.float32)).astype(np.float32)
+    return draw
+
+
+def fake_timm_vit(rng, dim: int, depth: int, tokens: int = 50) -> dict:
+    """timm ``vit_{small,base}_patch32_224``: ``blocks.{i}.attn.qkv.weight``
+    (3D, D) and the like, with its classifier head."""
+    w = _normal(rng)
+    sd = {"cls_token": w(1, 1, dim), "pos_embed": w(1, tokens, dim),
+          "patch_embed.proj.weight": w(dim, 3, 32, 32), "patch_embed.proj.bias": w(dim),
+          "norm.weight": 1 + w(dim, s=0.1), "norm.bias": w(dim),
+          "head.weight": w(1000, dim), "head.bias": w(1000)}
+    for i in range(depth):
+        p = f"blocks.{i}"
+        sd.update({f"{p}.norm1.weight": 1 + w(dim, s=0.1), f"{p}.norm1.bias": w(dim),
+                   f"{p}.attn.qkv.weight": w(3 * dim, dim), f"{p}.attn.qkv.bias": w(3 * dim),
+                   f"{p}.attn.proj.weight": w(dim, dim), f"{p}.attn.proj.bias": w(dim),
+                   f"{p}.norm2.weight": 1 + w(dim, s=0.1), f"{p}.norm2.bias": w(dim),
+                   f"{p}.mlp.fc1.weight": w(4 * dim, dim), f"{p}.mlp.fc1.bias": w(4 * dim),
+                   f"{p}.mlp.fc2.weight": w(dim, 4 * dim), f"{p}.mlp.fc2.bias": w(dim)})
+    return sd
+
+
+def fake_augreg_vit(rng, dim: int, depth: int, heads: int, tokens: int = 50) -> dict:
+    """Google's augreg big_vision ``.npz``: ``Transformer/encoderblock_{i}/
+    MultiHeadDotProductAttention_1/query/kernel`` (D, H, D/H) and the like,
+    the patch kernel already HWIO, with its classifier head."""
+    w = _normal(rng)
+    hd = dim // heads
+    sd = {"cls": w(1, 1, dim), "Transformer/posembed_input/pos_embedding": w(1, tokens, dim),
+          "embedding/kernel": w(32, 32, 3, dim), "embedding/bias": w(dim),
+          "Transformer/encoder_norm/scale": 1 + w(dim, s=0.1),
+          "Transformer/encoder_norm/bias": w(dim),
+          "head/kernel": w(dim, 1000), "head/bias": w(1000)}
+    for i in range(depth):
+        p = f"Transformer/encoderblock_{i}"
+        a = f"{p}/MultiHeadDotProductAttention_1"
+        sd.update({f"{p}/LayerNorm_0/scale": 1 + w(dim, s=0.1), f"{p}/LayerNorm_0/bias": w(dim),
+                   f"{p}/LayerNorm_2/scale": 1 + w(dim, s=0.1), f"{p}/LayerNorm_2/bias": w(dim),
+                   f"{p}/MlpBlock_3/Dense_0/kernel": w(dim, 4 * dim),
+                   f"{p}/MlpBlock_3/Dense_0/bias": w(4 * dim),
+                   f"{p}/MlpBlock_3/Dense_1/kernel": w(4 * dim, dim),
+                   f"{p}/MlpBlock_3/Dense_1/bias": w(dim),
+                   f"{a}/out/kernel": w(heads, hd, dim), f"{a}/out/bias": w(dim)})
+        for m in ("query", "key", "value"):
+            sd[f"{a}/{m}/kernel"] = w(dim, heads, hd)
+            sd[f"{a}/{m}/bias"] = w(heads, hd)
+    return sd
+
+
+def fake_openclip_vit(rng, dim: int, depth: int, tokens: int = 50) -> dict:
+    """open_clip ``open_clip_pytorch_model.bin``: the visual tower
+    (``visual.transformer.resblocks.{i}.attn.in_proj_weight`` and the like,
+    a bias-free patch conv, ``ln_pre``/``ln_post``, ``visual.proj``) and a
+    few of the text tower's tensors, which the map drops."""
+    w = _normal(rng)
+    sd = {"visual.class_embedding": w(dim), "visual.positional_embedding": w(tokens, dim),
+          "visual.conv1.weight": w(dim, 3, 32, 32),
+          "visual.ln_pre.weight": 1 + w(dim, s=0.1), "visual.ln_pre.bias": w(dim),
+          "visual.ln_post.weight": 1 + w(dim, s=0.1), "visual.ln_post.bias": w(dim),
+          "visual.proj": w(dim, 512), "positional_embedding": w(77, 512),
+          "text_projection": w(512, 512), "ln_final.weight": 1 + w(512, s=0.1),
+          "ln_final.bias": w(512), "logit_scale": w(s=1.0),
+          "transformer.resblocks.0.ln_1.weight": 1 + w(512, s=0.1)}
+    for i in range(depth):
+        p = f"visual.transformer.resblocks.{i}"
+        sd.update({f"{p}.ln_1.weight": 1 + w(dim, s=0.1), f"{p}.ln_1.bias": w(dim),
+                   f"{p}.attn.in_proj_weight": w(3 * dim, dim),
+                   f"{p}.attn.in_proj_bias": w(3 * dim),
+                   f"{p}.attn.out_proj.weight": w(dim, dim), f"{p}.attn.out_proj.bias": w(dim),
+                   f"{p}.ln_2.weight": 1 + w(dim, s=0.1), f"{p}.ln_2.bias": w(dim),
+                   f"{p}.mlp.c_fc.weight": w(4 * dim, dim), f"{p}.mlp.c_fc.bias": w(4 * dim),
+                   f"{p}.mlp.c_proj.weight": w(dim, 4 * dim), f"{p}.mlp.c_proj.bias": w(dim)})
+    return sd
+
+
+def fake_timm_efficientnet(rng, arch, stem: int, head: int = 1280) -> dict:
+    """timm ``tf_efficientnet_b0`` / ``tf_efficientnetv2_s`` from the stage
+    table ``arch`` ((type, repeats, k, stride, expansion, out, SE ratio)):
+    ``blocks.{s}.{b}.conv_dw.weight`` and the like, BatchNorms with running
+    statistics and ``num_batches_tracked``, the classifier. Kernels drawn
+    at 1/sqrt(fan in), as tests/test_convert.py draws B0's."""
+    import numpy as np
+
+    sd = {}
+
+    def conv(name, o, i, k, groups=1):
+        fan_in = (i // groups) * k * k
+        sd[f"{name}.weight"] = (rng.standard_normal((o, i // groups, k, k), dtype=np.float32)
+                                * fan_in ** -0.5)
+
+    def bn(name, c):
+        sd[f"{name}.weight"] = (1.0 + 0.05 * rng.standard_normal(c)).astype(np.float32)
+        sd[f"{name}.bias"] = (0.05 * rng.standard_normal(c)).astype(np.float32)
+        sd[f"{name}.running_mean"] = (0.05 * rng.standard_normal(c)).astype(np.float32)
+        sd[f"{name}.running_var"] = (0.9 + 0.1 * rng.random(c)).astype(np.float32)
+        sd[f"{name}.num_batches_tracked"] = np.array(0, np.int64)
+
+    def se(name, c, rd):
+        conv(f"{name}.conv_reduce", rd, c, 1)
+        sd[f"{name}.conv_reduce.bias"] = (0.05 * rng.standard_normal(rd)).astype(np.float32)
+        conv(f"{name}.conv_expand", c, rd, 1)
+        sd[f"{name}.conv_expand.bias"] = (0.05 * rng.standard_normal(c)).astype(np.float32)
+
+    conv("conv_stem", stem, 3, 3)
+    bn("bn1", stem)
+    in_chs = stem
+    for s, (btype, repeats, k, _, exp, out_chs, se_ratio) in enumerate(arch):
+        for b in range(repeats):
+            p = f"blocks.{s}.{b}"
+            mid = int(in_chs * exp)
+            if btype == "cn":
+                conv(f"{p}.conv", out_chs, in_chs, k)
+                bn(f"{p}.bn1", out_chs)
+            elif btype == "er":
+                conv(f"{p}.conv_exp", mid, in_chs, k)
+                bn(f"{p}.bn1", mid)
+                conv(f"{p}.conv_pwl", out_chs, mid, 1)
+                bn(f"{p}.bn2", out_chs)
+            elif btype == "ds":
+                conv(f"{p}.conv_dw", in_chs, in_chs, k, groups=in_chs)
+                bn(f"{p}.bn1", in_chs)
+                se(f"{p}.se", in_chs, max(1, int(in_chs * se_ratio)))
+                conv(f"{p}.conv_pw", out_chs, in_chs, 1)
+                bn(f"{p}.bn2", out_chs)
+            else:  # ir
+                conv(f"{p}.conv_pw", mid, in_chs, 1)
+                bn(f"{p}.bn1", mid)
+                conv(f"{p}.conv_dw", mid, mid, k, groups=mid)
+                bn(f"{p}.bn2", mid)
+                if se_ratio > 0:
+                    se(f"{p}.se", mid, max(1, int(in_chs * se_ratio)))
+                conv(f"{p}.conv_pwl", out_chs, mid, 1)
+                bn(f"{p}.bn3", out_chs)
+            in_chs = out_chs
+    conv("conv_head", head, in_chs, 1)
+    bn("bn2", head)
+    sd["classifier.weight"] = _normal(rng)(1000, head)
+    sd["classifier.bias"] = np.zeros(1000, np.float32)
+    return sd
+
+
+def reference_film_name(path) -> str:
+    """A FiLM leaf's parameter name in the reference recogniser
+    (model/film.py:68-74): ('blocks_1_0', 'bn2', 'scale') ->
+    'blocks.1.0.bn2.weight'."""
+    *mods, leaf = path
+    names = [p for m in mods for p in (m.split("_") if m.startswith("blocks_") else [m])]
+    return ".".join(names + ["weight" if leaf == "scale" else "bias"])
+
+
+def fake_reference_cnaps(rng, film_spec) -> dict:
+    """A full reference CNAPs recogniser on EfficientNet-B0
+    (``torch.save(model.state_dict())`` of SingleStepFewShotRecogniser with
+    ``--adapt_features --classifier versa``): the timm extractor under
+    ``feature_extractor.``, the set encoder's five conv/BatchNorm layers, the
+    FiLM generator's DenseBlocks and regularisers indexed by the sorted
+    reference names of the FiLM leaves (``film_spec``: (path, size)), and
+    the Versa weight and bias processors."""
+    import numpy as np
+
+    from orbit_tpu_torch.models.backbones.efficientnet import ARCHS, STEM_CHS
+
+    w = _normal(rng)
+    sd = {f"feature_extractor.{k}": v for k, v in fake_timm_efficientnet(
+        rng, ARCHS["efficientnet_b0"], STEM_CHS["efficientnet_b0"]).items()
+        if not k.startswith("classifier.")}
+    in_ch = 3
+    for i in range(1, 6):
+        p = f"set_encoder.encoder.layer{i}"
+        sd.update({f"{p}.0.weight": w(64, in_ch, 3, 3, s=(9 * in_ch) ** -0.5),
+                   f"{p}.0.bias": w(64), f"{p}.1.weight": 1 + w(64, s=0.05),
+                   f"{p}.1.bias": w(64), f"{p}.1.running_mean": np.zeros(64, np.float32),
+                   f"{p}.1.running_var": np.ones(64, np.float32),
+                   f"{p}.1.num_batches_tracked": np.array(0, np.int64)})
+        in_ch = 64
+    sizes = {reference_film_name(path): size for path, size in film_spec}
+    for i, name in enumerate(sorted(sizes)):
+        p = f"film_generator.generators.{i}"
+        sd.update({f"{p}.block.0.weight": w(64, 64, s=0.125), f"{p}.block.0.bias": w(64),
+                   f"{p}.block.1.weight": 1 + w(64, s=0.05), f"{p}.block.1.bias": w(64),
+                   f"{p}.block.3.weight": w(sizes[name], 64, s=0.01),
+                   f"{p}.block.3.bias": w(sizes[name], s=0.01),
+                   f"film_generator.regularizers.{i}": w(sizes[name], s=0.001)})
+    for proc, out in (("weight_processor", 1280), ("bias_processor", 1)):
+        for lin, fan_in in (("linear1", 1280), ("linear2", out), ("linear3", out)):
+            sd[f"classifier.{proc}.{lin}.weight"] = w(out, fan_in, s=fan_in ** -0.5)
+            sd[f"classifier.{proc}.{lin}.bias"] = w(out)
+    return sd
+
+
+def _save_upstream(sd: dict, path: Path) -> None:
+    import numpy as np
+
+    if path.suffix == ".npz":
+        np.savez(path, **sd)
+    else:
+        import torch
+        torch.save({k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()}, path)
+
+
+def _convert_script():
+    """``scripts/convert_checkpoint_torch.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "convert_checkpoint_torch", REPO / "scripts" / "convert_checkpoint_torch.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def check_leaves(torch, state: dict, expected: dict, label: str) -> None:
+    """Loaded leaves of the port's state dict against the upstream tensors
+    after their transposes: bit for bit."""
+    for key, value in expected.items():
+        ours = state[key].detach().float().cpu()
+        if tuple(ours.shape) != value.shape or not torch.equal(ours, torch.from_numpy(value)):
+            raise AssertionError(f"{label}: loaded {key} is not the upstream tensor")
+    print(f"  {label}: {len(expected)} loaded leaves equal the upstream tensors after their "
+          f"transposes, bit for bit ({', '.join(expected)})")
+
+
+def trace_kernel_names(trace: Path) -> dict:
+    """Kernel events of a Chrome trace by name: their count."""
+    names = {}
+    for evt in json.loads(trace.read_text()).get("traceEvents", []):
+        if evt.get("cat") == "kernel":
+            names[evt["name"]] = names.get(evt["name"], 0) + 1
+    return names
+
+
+def pretrained_phase(torch, card: str, workdir: Path) -> dict:
+    """Phase 11: pretrained weights through the CLIs. For each upstream
+    format a fake checkpoint at the published width and depth (from the
+    seed, in that upstream's own key layout) is converted with
+    ``scripts/convert_checkpoint_torch.py`` into a flax ``.ckpt`` and run
+    in ``--mode test`` (bf16, batch 256, 224 px, phase 4's tasks):
+    (a) ViT-S/32 from a timm ``.pth``, proto, with ``--profile_dir``, whose
+    trace must name kernels A and B; (b) ViT-B/32 from an augreg ``.npz``,
+    proto_cosine; (c) ViT-B/32-CLIP from an open_clip ``.bin`` through the
+    multi-step learner (FineTuner, frozen); (d) EfficientNetV2-S from a timm
+    ``.pth``, Mahalanobis head, its BatchNorms calibrated after the load;
+    (e) an EfficientNet-B0 CNAPs reference recogniser (``--full_model``,
+    set encoder, FiLM generator, Versa) through ``--model_path``,
+    calibrated after the load. Each run checks a handful of loaded leaves
+    against the upstream tensors bit for bit, and holds task 0 through the
+    kernels against their plain versions at phase 4's and 6's limits
+    (phase 8's for the FineTuner); the launch counters must show each
+    path's kernels in every extractor forward. Each run repeats task 0
+    warm 3 times (2 on the FineTuner); only (a) is traced, for ViT-S/32's
+    device breakdown and idle share."""
+    import numpy as np
+
+    from orbit_tpu_torch.models.backbones.efficientnet import (ARCHS, STEM_CHS,
+                                                               efficientnet_film_spec)
+
+    script = _convert_script()
+    workdir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(SEED + 11)
+    vit = {"fused_qkv_attention": DEPTH, "fused_mlp_block": DEPTH}
+    conv_t = (2, 3, 1, 0)
+    paths = {}
+
+    def converted(sd: dict, name: str, extractor: str, *more) -> str:
+        src, out = workdir / name, workdir / f"{Path(name).stem}.ckpt"
+        _save_upstream(sd, src)
+        t0 = time.perf_counter()
+        script.main(["--feature_extractor", extractor, "--torch_path", str(src),
+                     "--out", str(out), *more])
+        print(f"phase 11: {name} ({len(sd)} tensors, {src.stat().st_size / 2**20:.1f} MiB) "
+              f"-> {out.name} ({out.stat().st_size / 2**20:.1f} MiB) in "
+              f"{time.perf_counter() - t0:.2f} s")
+        src.unlink()
+        return str(out)
+
+    def leaves_after_construct(expected: dict, label: str):
+        return lambda learner: check_leaves(
+            torch, {f"extractor.{k}": v for k, v in
+                    learner.recogniser.extractor.state_dict().items()}, expected, label)
+
+    # (a) ViT-S/32, timm .pth, proto, --profile_dir
+    sd = fake_timm_vit(rng, 384, DEPTH)
+    expected = {"extractor.patch_embed.kernel": sd["patch_embed.proj.weight"].transpose(conv_t),
+                "extractor.blocks.0.attn.qkv.kernel": sd["blocks.0.attn.qkv.weight"].T,
+                "extractor.blocks.11.mlp.fc2.kernel": sd["blocks.11.mlp.fc2.weight"].T,
+                "extractor.norm.scale": sd["norm.weight"], "extractor.pos_embed": sd["pos_embed"]}
+    ckpt = converted(sd, "vit_s_32.pth", "vit_s_32")
+    profile = workdir / "profile"
+    paths["pretrained_vit_s_32"] = eval_path_phase(
+        torch, card, workdir / "vit_s", "phase 11 (a): ViT-S/32 from a timm .pth, proto",
+        ["--feature_extractor", "vit_s_32", "--classifier", "proto",
+         "--pretrained_extractor_path", ckpt, "--profile_dir", str(profile)], vit,
+        repeats=3, after_construct=leaves_after_construct(expected, "(a)"))
+    names = trace_kernel_names(profile / "trace.json")
+    found = {k: sum(n for name, n in names.items() if k in name)
+             for k in ("fused_qkv_attention", "fused_mlp_block")}
+    if not all(found.values()):
+        raise AssertionError(f"--profile_dir trace names no launch of {found}")
+    print(f"  --profile_dir: {profile / 'trace.json'} holds {sum(names.values())} kernel "
+          f"events; A's kernels {found['fused_qkv_attention']}, B's "
+          f"{found['fused_mlp_block']}")
+
+    # (b) ViT-B/32, augreg .npz, proto_cosine
+    sd = fake_augreg_vit(rng, 768, DEPTH, 12)
+    a = "Transformer/encoderblock_3/MultiHeadDotProductAttention_1"
+    expected = {"extractor.patch_embed.kernel": sd["embedding/kernel"],
+                "extractor.blocks.3.attn.qkv.kernel": np.concatenate(
+                    [sd[f"{a}/{m}/kernel"].reshape(768, -1) for m in ("query", "key", "value")],
+                    axis=1),
+                "extractor.blocks.3.attn.proj.kernel": sd[f"{a}/out/kernel"].reshape(-1, 768),
+                "extractor.blocks.7.norm2.scale": sd[
+                    "Transformer/encoderblock_7/LayerNorm_2/scale"]}
+    ckpt = converted(sd, "vit_b_32.npz", "vit_b_32")
+    paths["pretrained_vit_b_32_cosine"] = eval_path_phase(
+        torch, card, workdir / "vit_b", "phase 11 (b): ViT-B/32 from an augreg .npz, "
+        "proto_cosine", ["--feature_extractor", "vit_b_32", "--classifier", "proto_cosine",
+                         "--pretrained_extractor_path", ckpt], vit, repeats=3, traced=False,
+        after_construct=leaves_after_construct(expected, "(b)"))
+
+    # (c) ViT-B/32-CLIP, open_clip .bin, the FineTuner (frozen extractor)
+    sd = fake_openclip_vit(rng, 768, DEPTH)
+    r = "visual.transformer.resblocks.5"
+    expected = {"extractor.cls_token": sd["visual.class_embedding"].reshape(1, 1, 768),
+                "extractor.norm_pre.scale": sd["visual.ln_pre.weight"],
+                "extractor.blocks.5.attn.qkv.kernel": sd[f"{r}.attn.in_proj_weight"].T,
+                "extractor.blocks.5.mlp.fc1.kernel": sd[f"{r}.mlp.c_fc.weight"].T,
+                "extractor.patch_embed.kernel": sd["visual.conv1.weight"].transpose(conv_t)}
+    ckpt = converted(sd, "open_clip_pytorch_model.bin", "vit_b_32_clip")
+    paths["pretrained_clip_finetuner"] = finetuner_phase(
+        torch, card, workdir / "clip", "phase 11 (c): ViT-B/32-CLIP from an open_clip .bin, "
+        "FineTuner", ["--feature_extractor", "vit_b_32_clip", "--pretrained_extractor_path",
+                      ckpt], vit, repeats=2, traced=False,
+        after_construct=leaves_after_construct(expected, "(c)"))
+
+    # (d) EfficientNetV2-S, timm .pth, Mahalanobis head, calibrated after the load
+    sd = fake_timm_efficientnet(rng, ARCHS["efficientnet_v2_s"], STEM_CHS["efficientnet_v2_s"])
+    expected = {"extractor.conv_stem.kernel": sd["conv_stem.weight"].transpose(conv_t),
+                "extractor.blocks_1_0.conv_exp.kernel":
+                    sd["blocks.1.0.conv_exp.weight"].transpose(conv_t),
+                "extractor.blocks_4_2.conv_dw.kernel":
+                    sd["blocks.4.2.conv_dw.weight"].transpose(conv_t),
+                "extractor.blocks_5_3.se.conv_reduce.bias": sd["blocks.5.3.se.conv_reduce.bias"],
+                "extractor.bn2.scale": sd["bn2.weight"]}
+    ckpt = converted(sd, "tf_efficientnetv2_s.pth", "efficientnet_v2_s")
+    paths["pretrained_v2_s"] = eval_path_phase(
+        torch, card, workdir / "v2_s", "phase 11 (d): EfficientNetV2-S from a timm .pth, "
+        "Mahalanobis head", ["--feature_extractor", "efficientnet_v2_s", "--classifier",
+                             "mahalanobis", "--pretrained_extractor_path", ckpt],
+        {"fused_dw_act": sum(V2S_DW_TAILS.values())}, calibrate=True, repeats=3, traced=False,
+        after_construct=leaves_after_construct(expected, "(d)"))
+
+    # (e) EfficientNet-B0 CNAPs reference recogniser, --full_model, --model_path
+    spec = efficientnet_film_spec(ARCHS["efficientnet_b0"], STEM_CHS["efficientnet_b0"])
+    sd = fake_reference_cnaps(rng, spec)
+    index = {name: i for i, name in enumerate(sorted(reference_film_name(p) for p, _ in spec))}
+    g = f"film_generator.generators.{index['blocks.2.0.bn2.weight']}"
+    expected = {
+        "extractor.blocks_2_0.conv_dw.kernel":
+            sd["feature_extractor.blocks.2.0.conv_dw.weight"].transpose(conv_t),
+        "extractor.conv_head.kernel": sd["feature_extractor.conv_head.weight"].transpose(conv_t),
+        "set_encoder.conv3.kernel": sd["set_encoder.encoder.layer3.0.weight"].transpose(conv_t),
+        "film_generator.gen__blocks_2_0_bn2_scale.fc2.kernel": sd[f"{g}.block.3.weight"].T,
+        "film_generator.reg__blocks_2_0_bn2_scale": sd[
+            f"film_generator.regularizers.{index['blocks.2.0.bn2.weight']}"],
+        "versa.weight_processor.linear2.kernel":
+            sd["classifier.weight_processor.linear2.weight"].T}
+    ckpt = converted(sd, "cnaps_efficientnet_b0.pt", "efficientnet_b0", "--full_model",
+                     "--classifier", "versa", "--adapt_features")
+    from orbit_tpu_torch.models.backbones.efficientnet import calibrate_batchnorm
+    from orbit_tpu_torch.data.episodes import pad_episode
+    ep = pad_episode(synthetic_tasks()[0])
+    frames = torch.from_numpy(np.concatenate(
+        [ep.context_clips[:, 0]] + [v[:40] for v in ep.video_frames]))
+
+    def after_load(rec):
+        check_leaves(torch, rec.state_dict(), expected, "(e)")
+        calibrate_batchnorm(rec.extractor, rec._maybe_normalize(frames.to(rec.pixel_mean.device)))
+    paths["pretrained_cnaps"] = eval_path_phase(
+        torch, card, workdir / "cnaps", "phase 11 (e): EfficientNet-B0 CNAPs reference "
+        "recogniser through --model_path", ["--feature_extractor", "efficientnet_b0",
+                                            "--adapt_features", "--classifier", "versa",
+                                            "--model_path", ckpt],
+        {"fused_dw_act": B0_DW_PER_FORWARD}, repeats=3, traced=False, after_load=after_load)
+    return paths
 
 
 def main(argv=None) -> int:
@@ -2312,11 +2810,11 @@ def main(argv=None) -> int:
     rows["mahalanobis_logits"] = mahalanobis_kernel_phase(torch, card)
     rows.update(attention_kernel_phase(torch, card))
 
-    # phases 4 to 10: the ViT eval path, the ViT train path, the SimpleCNAPs
+    # phases 4 to 11: the ViT eval path, the ViT train path, the SimpleCNAPs
     # path, the SimpleCNAPs FiLM train path, the ViT-B/32-CLIP FineTuner with
-    # FiLM, the EfficientNet-B0 FineTuner frozen and with FiLM, and the
+    # FiLM, the EfficientNet-B0 FineTuner frozen and with FiLM, the
     # EfficientNet-B0 ProtoNets+LITE meta-training with --learn_extractor,
-    # each read alone
+    # and pretrained weights from each upstream format, each read alone
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         paths = {
             "eval": eval_path_phase(
@@ -2347,6 +2845,8 @@ def main(argv=None) -> int:
                 {"fused_dw_act": B0_DW_PER_FORWARD}, calibrate=True),
             "learn_extractor": train_path_phase(torch, card, Path(tmp) / "learn_extractor",
                                                 extractor="efficientnet_b0")}
+        # phase 11: pretrained weights from each upstream format through the CLIs
+        paths.update(pretrained_phase(torch, card, Path(tmp) / "pretrained"))
     # the kernels each path must launch; a kernel's row reports the first
     # path that launches it
     path_kernels = {"eval": ["fused_qkv_attention", "fused_mlp_block"],
@@ -2357,7 +2857,12 @@ def main(argv=None) -> int:
                     "finetune_vit_film": ["fused_qkv_attention", "fused_mlp_block",
                                           "fused_qkv_attention_bwd", "fused_mlp_block_bwd"],
                     "finetune_b0": ["fused_dw_act"], "finetune_b0_film": ["fused_dw_act"],
-                    "learn_extractor": ["fused_dw_act"]}
+                    "learn_extractor": ["fused_dw_act"],
+                    "pretrained_vit_s_32": ["fused_qkv_attention", "fused_mlp_block"],
+                    "pretrained_vit_b_32_cosine": ["fused_qkv_attention", "fused_mlp_block"],
+                    "pretrained_clip_finetuner": ["fused_qkv_attention", "fused_mlp_block"],
+                    "pretrained_v2_s": ["mahalanobis_logits", "fused_dw_act"],
+                    "pretrained_cnaps": ["fused_dw_act"]}
     path_of = {}
     for path, names in path_kernels.items():
         unused = [n for n in names if paths[path][n] < 1]

@@ -28,13 +28,13 @@ personalise first. The MACs to personalise follow the JAX learner's
 of the recogniser at the task's real context rows with 1 and with 2 grad
 steps, and the task is charged ``base + per_step * K``. The FiLM leaves
 are f32 masters (``MultiStepFewShotRecogniser.init_task_params``), where
-the JAX learner trains them in their storage dtype. Refused with an error,
-as by the single-step learner: ``--data_parallel``/``--task_parallel`` >
-1, ``--profile_dir``, ``--pretrained_extractor_path``.
+the JAX learner trains them in their storage dtype. ``--profile_dir``,
+``--pretrained_extractor_path``, a JAX ``--model_path`` and the bf16 pixel
+wire work as in the single-step learner. Refused with an error, as by the
+single-step learner: ``--data_parallel``/``--task_parallel`` > 1.
 """
 from __future__ import annotations
 
-import os
 import random
 import time
 from typing import Optional
@@ -45,15 +45,16 @@ import torch
 from orbit_tpu_torch.data.episodes import pad_episode, prefetch_prepared
 from orbit_tpu_torch.data.transforms import attach_frame_history
 from orbit_tpu_torch.learners.single_step import (SingleStepLearner, check_ported,
-                                                  select_device)
-from orbit_tpu_torch.models import convert
+                                                  load_pretrained, select_device)
 from orbit_tpu_torch.models import heads as heads_lib
 from orbit_tpu_torch.models.precision import cast_extractor_params, compute_dtype
 from orbit_tpu_torch.models.recognisers import MultiStepFewShotRecogniser
+from orbit_tpu_torch.utils.checkpoint import maybe_load_params
 from orbit_tpu_torch.utils.eval_metrics import TestEvaluator
 from orbit_tpu_torch.utils.logging import get_log_files, print_and_log, stats_to_str
 from orbit_tpu_torch.utils.ops_counter import meta_copy
 from orbit_tpu_torch.utils.optim import cross_entropy
+from orbit_tpu_torch.utils.profiling import trace
 
 
 def inner_optimizer(args, task_params) -> torch.optim.Optimizer:
@@ -199,16 +200,20 @@ class MultiStepLearner:
             logit_scale=args.logit_scale, dtype=self.dtype,
             frame_norm_method=args.frame_norm_method, frame_size=args.frame_size,
         ).to(self.device).init(args.seed)
+        load_pretrained(self.recogniser, args, self.logfile)
         if self.after_init is not None:
             self.after_init(self.recogniser)
         self.personalise_fn, self.predict_fn = build_finetune_fns(self.recogniser, args)
 
     def run(self):
-        self.test(self.args.model_path)
+        with trace(getattr(self.args, "profile_dir", None)):
+            self.test(self.args.model_path)
         self.logfile.close()
 
     _sync = SingleStepLearner._sync
     _to_device = SingleStepLearner._to_device
+    _host_to_device = SingleStepLearner._host_to_device
+    _clips_to_device = SingleStepLearner._clips_to_device
 
     def personalise_macs(self, ops_counter, n_valid: int, ctx) -> float:
         """The FineTuner's MACs to personalise (orbit_tpu multi_step.py:
@@ -229,13 +234,7 @@ class MultiStepLearner:
 
     def test(self, path: Optional[str], save_evaluator: bool = True):
         args = self.args
-        used = None
-        if path and os.path.exists(path):
-            self.recogniser.load_state_dict(convert.load(path), strict=True)
-            used = path
-        else:
-            print_and_log(self.logfile, "warning: saved model path could not be "
-                                        "found; using original param initialisation.")
+        used = maybe_load_params(path, self.recogniser, self.logfile)
         evaluator = self.test_evaluator
         evaluator.set_base_params(self.recogniser)
         if self.dtype == torch.bfloat16:
@@ -249,7 +248,7 @@ class MultiStepLearner:
             # pad + pinned H2D of the context for task t+1 on the prefetch
             # thread; query videos stay on the host until their predict
             ep = pad_episode(task_dict)
-            ctx = (self._to_device(ep.context_clips),
+            ctx = (self._clips_to_device(ep.context_clips),
                    self._to_device(ep.context_labels.astype(np.int64)),
                    self._to_device(ep.context_mask), self._to_device(ep.class_mask))
             return ep, ctx, [attach_frame_history(fr, args.clip_length)
@@ -281,7 +280,7 @@ class MultiStepLearner:
             for clips, mask, label, paths in zip(query, ep.video_masks, ep.video_labels,
                                                  ep.video_paths):
                 n_real = int(mask.sum())
-                clips = self._to_device(clips)
+                clips = self._clips_to_device(clips)
                 self._sync()
                 t1 = time.perf_counter()
                 logits = self.predict_fn(task_params, clips, class_mask).cpu().numpy()

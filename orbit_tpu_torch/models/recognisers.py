@@ -100,6 +100,7 @@ class FewShotRecogniser(nn.Module):
             raise NotImplementedError(f"classifier {classifier!r} on "
                                       f"{type(self).__name__} (takes: {self.HEADS})")
         configure_matmul_precision()
+        self.feature_extractor_name = feature_extractor_name
         self.adapt_features = adapt_features
         self.classifier = classifier
         self.clip_length = clip_length

@@ -133,14 +133,17 @@ def build_parser(learner: str = "default") -> argparse.ArgumentParser:
                         help="This host's shard of the task stream. "
                              "-1 = derive from jax.process_index().")
     parser.add_argument("--pretrained_extractor_path", type=str, default=None,
-                        help="Converted pretrained backbone weights (orbit_tpu.models.convert). "
-                             "The reference downloads timm/CLIP checkpoints at construction.")
+                        help="Converted pretrained backbone weights, a flax msgpack file "
+                             "(scripts/convert_checkpoint_torch.py, or the JAX package's "
+                             "scripts/convert_checkpoint.py). The reference downloads "
+                             "timm/CLIP checkpoints at construction.")
     parser.add_argument("--resume_from", type=str, default=None,
-                        help="Path to a checkpoint.ckpt to resume training from "
-                             "(the reference's load_checkpoint is dead code; wired here).")
+                        help="Path to the port's checkpoint.ckpt to resume training from "
+                             "(the reference's load_checkpoint is dead code; wired here). "
+                             "A JAX train state (flax msgpack) is refused.")
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="Write a jax.profiler device trace for the run here "
-                             "(view in TensorBoard/Perfetto).")
+                        help="Write a torch.profiler Chrome trace of the run here "
+                             "(trace.json; view in Perfetto or chrome://tracing).")
     parser.add_argument("--compile_cache", type=str,
                         default="~/.cache/orbit_tpu/xla",
                         help="JAX persistent compilation cache directory: repeat "
