@@ -158,12 +158,34 @@ Phases, each of which passes or raises:
    encoder, FiLM generator, Versa) through ``--model_path``, calibrated
    after the load. Each run holds a handful of loaded leaves to the
    upstream tensors after their transposes, bit for bit.
+12. the parallel axes: (a)-(c) ``--task_parallel`` on one device through
+   the learners' protocols, each against the serial protocol in the same
+   call, on phase 4's synthetic tasks (bf16, batch 256, 224 px): (a)
+   ViT-B/32 ProtoNets in groups of 4 over 8 tasks; (b) the ViT-B/32-CLIP
+   FineTuner with a frozen extractor in groups of 4 over 8 tasks; (c)
+   EfficientNet-B0 SimpleCNAPs with FiLM in groups of 2 over 4 tasks,
+   calibrated as phase 6. Every grouped run must launch A and B (#8)
+   DEPTH times in every extractor forward, the lanes folded into one
+   forward without FiLM and run one after another with it, and (c) #7 once
+   a lane of every grouped predict; every video's logits within
+   PATH_REL_TOL of the serial run's and the argmax on 99% of the frames
+   (in (c) printed, and one group held in f32 instead: FiLM values and
+   logits within 2e-4 of their largest value, as phases 7 and 9 hold B0);
+   then one group's tasks repeated warm, grouped and serially, for the
+   median and range of query frames/s and time to personalise, the idle
+   share of a traced repeat and the peak memory of each loop. (d) the
+   distributed paths in a one-rank NCCL group on the card: an episode-DP
+   LITE step on ViT-B/32 (#4, #6) against the serial step, query sharding
+   and FineTuner row sharding against their serial counterparts; then a
+   two-rank gloo group on the one card (two processes), whose summed
+   gradients are held against the serial sum, or whose refusal of CUDA
+   tensors is printed.
 
 The line before the last is ``{"kernels": [...]}`` (launches: kernels A and
 B from phase 4, #4 and #6 from phase 5, #7 and #8 from phase 6; #1 and #2
-are on no path and report their launches over phases 4 to 11 together,
+are on no path and report their launches over phases 4 to 12 together,
 which must be 0; their checks and times are phase 3's; ``launches_by_path``
-gives every kernel's launches on each path, phases 8 to 11's paths
+gives every kernel's launches on each path, phases 8 to 12's paths
 included, ``gemm_ms`` the cuBLAS yardstick of A, B, #4 and #6); the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
@@ -2755,6 +2777,536 @@ def pretrained_phase(torch, card: str, workdir: Path) -> dict:
     return paths
 
 
+# ------------------------------------------------------------ phase 12 ----
+# warm repeats of each loop in phase 12 (phases 4 and 6 take 10)
+TP_REPEATS = 5
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def protocol_run(torch, learner) -> dict:
+    """``learner.run()`` with every video's logits that reach the evaluator
+    kept in arrival order; the launch counts set to 0 just before the run
+    and read just after it; the run's peak device memory."""
+    import numpy as np
+
+    from orbit_tpu_torch.kernels import build as kbuild
+
+    seen = []
+    append = learner.test_evaluator.append_video
+
+    def kept(logits, label, paths):
+        seen.append(np.array(logits, np.float32))
+        return append(logits, label, paths)
+    learner.test_evaluator.append_video = kept
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kbuild.reset_launch_counts()
+    t0 = time.perf_counter()
+    learner.run()
+    torch.cuda.synchronize()
+    return {"wall": time.perf_counter() - t0, "launches": dict(kbuild.LAUNCHES),
+            "logits": seen, "forwards": learner.recogniser.extractor.forward_calls,
+            "peak": torch.cuda.max_memory_allocated() / 2**30,
+            "timings": learner.test_timings}
+
+
+def hold_protocols(serial: dict, grouped: dict, label: str, held: bool = True) -> None:
+    """Every video's logits of the grouped run against the serial run's:
+    within PATH_REL_TOL of the video's largest serial logit over the
+    present classes, and the argmax on ARGMAX_AGREEMENT of the frames;
+    printed only, where not ``held``."""
+    import numpy as np
+
+    if len(serial["logits"]) != len(grouped["logits"]) or not serial["logits"]:
+        raise AssertionError(f"{label}: {len(grouped['logits'])} videos grouped, "
+                             f"{len(serial['logits'])} serial")
+    worst, same, frames = 0.0, 0, 0
+    for a, b in zip(grouped["logits"], serial["logits"]):
+        present = b[0] > -1e29
+        if a.shape != b.shape or not np.array_equal(a[0] > -1e29, present):
+            raise AssertionError(f"{label}: a video's logits differ in shape or classes")
+        if not np.isfinite(a[:, present]).all():
+            raise AssertionError(f"{label}: non-finite grouped logits")
+        err = float(np.abs(a[:, present] - b[:, present]).max())
+        rel = err / max(float(np.abs(b[:, present]).max()), 1e-30)
+        if held and rel > PATH_REL_TOL:
+            raise AssertionError(f"{label}: grouped logits differ from serial by {rel:.3e} "
+                                 f"of the largest, more than {PATH_REL_TOL}")
+        worst = max(worst, rel)
+        same += int((a.argmax(-1) == b.argmax(-1)).sum())
+        frames += a.shape[0]
+    agree = same / frames
+    print(f"  grouped vs serial, {len(serial['logits'])} videos: logits max rel {worst:.3e} "
+          f"({f'limit {PATH_REL_TOL}' if held else 'printed, not held'}), argmax agreement "
+          f"{agree:.4f} on {frames} query frames")
+    if held and agree < ARGMAX_AGREEMENT:
+        raise AssertionError(f"{label}: argmax agreement {agree:.4f} < {ARGMAX_AGREEMENT}")
+
+
+def group_tensors(torch, dev, eps, dp: int, per_video: bool):
+    """A group of the first ``dp`` padded test episodes on ``dev``: the
+    grouped batch (:func:`stack_eval_group`, cut by :func:`trim_videos`),
+    and each task's context tensors and query (each video alone where
+    ``per_video``, else the task's videos in one tensor)."""
+    import numpy as np
+
+    from orbit_tpu_torch.parallel.task_dp import (build_query_block, stack_eval_group,
+                                                  trim_videos)
+
+    eps = eps[:dp]
+    qbs = [build_query_block(ep, 1) for ep in eps]
+    batch = stack_eval_group(eps, qbs, dp)
+    trim_videos(batch, qbs)
+    gdev = {k: torch.from_numpy(v.astype(np.int64) if k == "context_labels" else v).to(dev)
+            for k, v in batch.items()}
+    tasks = [(tuple(torch.from_numpy(a).to(dev) for a in (
+        ep.context_clips, ep.context_labels.astype(np.int64), ep.context_mask, ep.class_mask)),
+        [torch.from_numpy(v[:, None]).to(dev) for v in ep.video_frames] if per_video
+        else [torch.from_numpy(np.concatenate(ep.video_frames)[:, None]).to(dev)])
+        for ep in eps]
+    return gdev, tasks
+
+
+def hold_group_in_f32(torch, learner, grouped, eps, label: str) -> None:
+    """The group's first ``dp`` tasks through the grouped call and serially
+    with the model computing in f32 (its parameters as drawn, f32): each
+    lane's FiLM values and its context features under them within
+    F32_PATH_GRAD_TOL of their largest value, and the argmax of every real
+    query frame on ARGMAX_AGREEMENT. The Mahalanobis head's precisions (a
+    batched ``linalg.inv`` of 1280 x 1280 matrices whose conditioning the
+    random weights set) and the logits are printed: the grouped call
+    inverts every lane's classes in one batch, the serial loop one task's,
+    and the two factorisations round differently. In bf16 rounding alone
+    (the set encoder's and the heads' batch shapes) moves the features,
+    which random EfficientNet weights amplify (phases 6 and 9): there the
+    protocols' comparison is printed."""
+    import numpy as np
+
+    if len({v.shape[0] for ep in eps[:grouped.dp] for v in ep.video_frames}) != 1:
+        raise ValueError("hold_group_in_f32 takes tasks whose videos share one frame bucket")
+    rec = learner.recogniser
+    rec.dtype = rec.extractor.dtype = torch.float32
+    worst = {"film": 0.0, "features": 0.0, "precisions": 0.0, "logits": 0.0}
+    same = frames = 0
+    try:
+        gdev, tasks = group_tensors(torch, learner.device, eps, grouped.dp, per_video=False)
+        states = grouped.personalise(gdev)
+        logits = grouped.predict(states, gdev["query_clips"], gdev["class_mask"])
+        for i, (ep, (ctx, (query,))) in enumerate(zip(eps, tasks)):
+            state = learner.personalise_fn(*ctx)
+            for name, value in state["film"].items():
+                _, rel = compare(states["film"][i][name], value, 0.0,
+                                 F32_PATH_GRAD_TOL * float(value.abs().max()),
+                                 f"{label} f32 FiLM {name}")
+                worst["film"] = max(worst["film"], rel)
+            with torch.inference_mode():
+                ours = rec.embed_clips(ctx[0], film=states["film"][i])
+                ref = rec.embed_clips(ctx[0], film=state["film"])
+            _, rel = compare(ours, ref, 0.0, F32_PATH_GRAD_TOL * float(ref.abs().max()),
+                             f"{label} f32 context features")
+            worst["features"] = max(worst["features"], rel)
+            worst["precisions"] = max(worst["precisions"], worst_rel(
+                [states["head"]["precisions"][i]], [state["head"]["precisions"]]))
+            ref = learner.predict_fn(state, query, ctx[3])
+            real = torch.from_numpy(np.concatenate([m > 0 for m in ep.video_masks]))
+            present = ctx[3].bool()
+            ours = logits[i][:query.shape[0]][real][:, present]
+            ref = ref[real][:, present]
+            worst["logits"] = max(worst["logits"], worst_rel([ours], [ref]))
+            same += int((ours.argmax(-1) == ref.argmax(-1)).sum())
+            frames += int(real.sum())
+    finally:
+        rec.dtype = rec.extractor.dtype = learner.dtype
+    agree = same / frames
+    print(f"  grouped vs serial in f32, {grouped.dp} tasks: FiLM values max rel "
+          f"{worst['film']:.3e}, context features {worst['features']:.3e} (limit "
+          f"{F32_PATH_GRAD_TOL}); printed: precisions {worst['precisions']:.3e}, logits "
+          f"{worst['logits']:.3e}; argmax agreement {agree:.4f} on {frames} real query frames")
+    if agree < ARGMAX_AGREEMENT:
+        raise AssertionError(f"{label}: f32 argmax agreement {agree:.4f} < {ARGMAX_AGREEMENT}")
+
+
+def grouped_vs_serial_repeats(torch, learner, grouped, eps, card: str, label: str,
+                              per_video: bool) -> None:
+    """The group's first ``dp`` tasks, warm, ``TP_REPEATS`` times: once as
+    one grouped personalise and predict, once task by task as the serial
+    protocol runs them (personalise, then the predict copied to the host:
+    each video's alone where ``per_video``, as the FineTuner's loop does,
+    else the task's videos in one call, as the single-step loop does under
+    ``--batch_videos``, its default); each timed as the protocol times it.
+    Prints query frames/s
+    and time to personalise a task (median and range), the device's idle
+    share over one traced repeat and the peak memory of each loop."""
+    dp = grouped.dp
+    real = sum(int(m.sum()) for ep in eps[:dp] for m in ep.video_masks)
+    gdev, tasks = group_tensors(torch, learner.device, eps, dp, per_video)
+
+    def grouped_once():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states = grouped.personalise(gdev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grouped.predict(states, gdev["query_clips"], gdev["class_mask"]).cpu()
+        return t1 - t0, time.perf_counter() - t1
+
+    def serial_once():
+        pers = pred = 0.0
+        for ctx, videos in tasks:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = learner.personalise_fn(*ctx)
+            torch.cuda.synchronize()
+            pers += time.perf_counter() - t0
+            for clips in videos:
+                t1 = time.perf_counter()
+                learner.predict_fn(state, clips, ctx[3]).cpu()
+                pred += time.perf_counter() - t1
+        return pers, pred
+
+    for name, once in (("serial", serial_once), (f"grouped x{dp}", grouped_once)):
+        once()  # warm
+        torch.cuda.reset_peak_memory_stats()
+        runs = [once() for _ in range(TP_REPEATS)]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        pers = [1e3 * p / dp for p, _ in runs]
+        fps = [real / q for _, q in runs]
+        print(f"  {label}, {name}: {dp} tasks repeated {TP_REPEATS}x warm: query frames/s "
+              f"median {statistics.median(fps):.1f} ({min(fps):.1f}-{max(fps):.1f}); time to "
+              f"personalise median {statistics.median(pers):.2f} ms a task "
+              f"({min(pers):.2f}-{max(pers):.2f}); peak memory {peak:.2f} GiB ({card})")
+        device_breakdown(torch, once, card)
+
+
+def task_parallel_phase(torch, card: str, workdir: Path) -> dict:
+    """Phase 12 (a)-(c): ``--task_parallel`` on one device through the
+    learners' protocols, each against the serial protocol in the same call
+    (bf16, batch 256, 224 px, phase 4's synthetic tasks, which share one
+    bucket): (a) ViT-B/32 ProtoNets, groups of 4 over 8 tasks; (b) the
+    ViT-B/32-CLIP FineTuner with a frozen extractor, groups of 4 over 8
+    tasks; (c) EfficientNet-B0 SimpleCNAPs with FiLM, groups of 2 over 4
+    tasks, calibrated as phase 6. Each grouped run must launch A and B
+    (#8) DEPTH (12) times in every extractor forward, its lanes folded
+    into one forward without FiLM; (c) #7 once a lane of every grouped
+    predict. Every video's logits against the serial run's (PATH_REL_TOL,
+    ARGMAX_AGREEMENT; in (c) printed, and one group held in f32 instead:
+    :func:`hold_group_in_f32`); then warm repeats of one group against its
+    tasks run serially."""
+    import numpy as np
+
+    from orbit_tpu_torch.data.episodes import pad_episode
+    from orbit_tpu_torch.learners.multi_step import MultiStepLearner
+    from orbit_tpu_torch.learners.single_step import SingleStepLearner
+    from orbit_tpu_torch.models.backbones.efficientnet import calibrate_batchnorm
+    from orbit_tpu_torch.parallel import task_dp
+    from orbit_tpu_torch.utils.args import parse_args
+
+    all_tasks = synthetic_tasks(num_tasks=8)
+    eps = [pad_episode(t) for t in all_tasks]
+    runs = {
+        "task_parallel_vit": ("(a) ViT-B/32 ProtoNets", "single-step-learner", 4, 8,
+                              ["--feature_extractor", "vit_b_32", "--classifier", "proto"],
+                              {"fused_qkv_attention": DEPTH, "fused_mlp_block": DEPTH}),
+        "task_parallel_clip_finetuner": (
+            "(b) ViT-B/32-CLIP FineTuner, frozen", "multi-step-learner", 4, 8,
+            ["--feature_extractor", "vit_b_32_clip", "--classifier", "linear"],
+            {"fused_qkv_attention": DEPTH, "fused_mlp_block": DEPTH}),
+        "task_parallel_b0_simplecnaps": (
+            "(c) EfficientNet-B0 SimpleCNAPs, FiLM", "single-step-learner", 2, 4,
+            ["--feature_extractor", "efficientnet_b0", "--adapt_features",
+             "--classifier", "mahalanobis"], {"fused_dw_act": B0_DW_PER_FORWARD})}
+    frames = torch.from_numpy(np.concatenate(
+        [eps[0].context_clips[:, 0]] + [v[:40] for v in eps[0].video_frames]))
+
+    def calibrated(rec):
+        calibrate_batchnorm(rec.extractor, rec._maybe_normalize(frames.to(rec.pixel_mean.device)))
+
+    paths = {}
+    for path, (label, learner_name, dp, n_tasks, flags, per_forward) in runs.items():
+        tasks = all_tasks[:n_tasks]
+        b0 = "efficientnet_b0" in flags
+
+        def make(tdp):
+            sub = workdir / path / f"tp{tdp}"
+            args = parse_args(learner_name, [
+                "--data_path", str(sub / "data"), "--checkpoint_dir", str(sub / "ckpt"),
+                "--mode", "test", *flags, "--compute_dtype", "bfloat16", "--batch_size", "256",
+                "--frame_size", "224", "--num_test_tasks", "1", "--seed", str(SEED),
+                "--task_parallel", str(tdp)])
+            cls = MultiStepLearner if learner_name == "multi-step-learner" else SingleStepLearner
+            return cls(args, test_queue=TaskQueue(tasks), after_init=calibrated if b0 else None)
+
+        # the grouped predict calls, for #7's count (once a lane a call)
+        predicts = [0]
+        predict = task_dp.TaskBatchedEval.predict
+
+        def counted(self, *a, **kw):
+            predicts[0] += 1
+            return predict(self, *a, **kw)
+        if b0:  # held in f32 on a learner of its own, before the bf16 runs
+            f32 = make(dp)
+            hold_group_in_f32(torch, f32, task_dp.TaskBatchedEval(f32.recogniser, dp),
+                              eps[:n_tasks], label)
+            del f32
+        serial = protocol_run(torch, make(1))
+        task_dp.TaskBatchedEval.predict = counted
+        try:
+            learner = make(dp)
+            grouped = protocol_run(torch, learner)
+        finally:
+            task_dp.TaskBatchedEval.predict = predict
+        for name, run in (("serial", serial), (f"--task_parallel {dp}", grouped)):
+            counts = ", ".join(f"{n} {run['launches'][n]}" for n in KERNELS if run["launches"][n])
+            fps = 1.0 / statistics.mean(run["timings"]["inference_per_frame"])
+            ms = 1e3 * statistics.mean(run["timings"]["personalise"])
+            print(f"phase 12 {label}, {name} ({card}): {n_tasks} tasks, {run['forwards']} "
+                  f"extractor forwards, wall {run['wall']:.2f} s; launches: {counts}; "
+                  f"protocol's reading: query frames/s {fps:.1f}, time to personalise "
+                  f"{ms:.2f} ms a task; peak memory {run['peak']:.2f} GiB")
+            for kernel, count in per_forward.items():
+                if run["launches"][kernel] != count * run["forwards"] or not run["forwards"]:
+                    raise AssertionError(f"{label}, {name}: {kernel} {run['launches'][kernel]} "
+                                         f"launches, expected {count} x {run['forwards']} "
+                                         f"extractor forwards")
+        if b0 and grouped["launches"]["mahalanobis_logits"] != dp * predicts[0]:
+            raise AssertionError(f"{label}: mahalanobis_logits "
+                                 f"{grouped['launches']['mahalanobis_logits']} launches for "
+                                 f"{predicts[0]} grouped predicts of {dp} lanes")
+        if not b0 and grouped["forwards"] >= serial["forwards"]:
+            raise AssertionError(f"{label}: the lanes were not folded into the extractor's "
+                                 f"batch ({grouped['forwards']} forwards, serial "
+                                 f"{serial['forwards']})")
+        hold_protocols(serial, grouped, label, held=not b0)
+        if learner_name == "multi-step-learner":
+            group = task_dp.TaskBatchedFineTune(learner.recogniser, learner.args, dp)
+        else:
+            group = task_dp.TaskBatchedEval(learner.recogniser, dp)
+        grouped_vs_serial_repeats(torch, learner, group, eps[:n_tasks], card, label,
+                                  per_video=learner_name == "multi-step-learner")
+        paths[path] = grouped["launches"]
+    return paths
+
+
+def _gloo_rank(rank: int, port: int, out: str, seed: int, device: str) -> None:
+    """Phase 12 (d), one rank of a two-rank gloo group on the one card:
+    probes an ``all_reduce`` of a CUDA tensor; if gloo takes it, the
+    episode-DP step of two train tasks (one a rank) on ViT-B/32 cut to
+    depth 2, bf16, the extractor learned; rank 0 also runs the serial sum
+    and writes what it found to ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    from orbit_tpu_torch.data.episodes import pad_episode
+    from orbit_tpu_torch.kernels import build as kbuild
+    from orbit_tpu_torch.learners import steps as steps_lib
+    from orbit_tpu_torch.models.backbones import vit
+    from orbit_tpu_torch.models.recognisers import SingleStepFewShotRecogniser
+    from orbit_tpu_torch.parallel import EpisodeDataParallel, make_mesh
+    from orbit_tpu_torch.parallel.episode_dp import episode_to_device, stack_group
+    from orbit_tpu_torch.utils.optim import init_optimizer
+
+    global SEED
+    SEED = seed
+    if device.startswith("cuda"):
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2)
+    result = {}
+    try:
+        probe = torch.ones(4, device=device)
+        try:
+            dist.all_reduce(probe)
+        except RuntimeError as e:  # gloo refuses CUDA tensors: a finding, not a fault
+            result = {"refused": str(e).splitlines()[0][:300]}
+        else:
+            vit.VIT_CONFIGS["vit_b_32"] = (768, 2, 12, False, 1e-6)
+            args = SimpleNamespace(tasks_per_batch=2, learn_extractor=True, with_lite=False,
+                                   num_lite_samples=16, batch_size=256, optimizer="adam",
+                                   learning_rate=1e-4, weight_decay=0.0, betas=(0.9, 0.999),
+                                   epsilon=1e-8, momentum=0.0, data_parallel=2,
+                                   episode_prefetch=1)
+
+            def model():
+                rec = SingleStepFewShotRecogniser("vit_b_32", batch_size=256,
+                                                  dtype=torch.bfloat16).to(device).init(SEED)
+                return rec.train()
+            eps = [pad_episode(t) for t in synthetic_train_tasks(num_tasks=2, target_shots=8)]
+            batch = stack_group(eps)
+            rec = model()
+            edp = EpisodeDataParallel(rec, args, init_optimizer(rec, args), make_mesh(2))
+            kbuild.reset_launch_counts()
+            edp.batch_grads(batch)
+            if device.startswith("cuda"):
+                torch.cuda.synchronize()
+            result = {"launches": dict(kbuild.LAUNCHES)}
+            if rank == 0:
+                ref = model()
+                fn = steps_lib.build_train_task(ref, args)
+                for i in range(2):
+                    fn(episode_to_device({k: v[i] for k, v in batch.items()}, device))
+                named = dict(ref.named_parameters())
+                result["worst"] = max(
+                    float((p.grad - named[n].grad).abs().max())
+                    / max(float(named[n].grad.abs().max()), 1e-30)
+                    for n, p in rec.named_parameters() if p.requires_grad)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        Path(out).write_text(json.dumps(result))
+
+
+def distributed_phase(torch, card: str, workdir: Path, device: str = "cuda:0",
+                      backend: str = "nccl") -> dict:
+    """Phase 12 (d): the distributed paths in a one-rank NCCL group on the
+    card (their collectives run), each against its serial counterpart:
+    an episode-DP LITE step on ViT-B/32 (bf16, batch 256, 16 LITE clips,
+    the extractor learned: #4 and #6), every gradient held per tensor to
+    PATH_REL_TOL; query sharding of a 1000-frame query; FineTuner row
+    sharding (frozen, 50 Adam steps), the task parameters and logits. Then
+    a two-rank gloo group on the one card (NCCL refuses two ranks on one
+    device), whose summed gradients are held against the serial sum, or
+    whose refusal of CUDA tensors is printed."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from orbit_tpu_torch.data.episodes import pad_episode
+    from orbit_tpu_torch.kernels import build as kbuild
+    from orbit_tpu_torch.learners import steps as steps_lib
+    from orbit_tpu_torch.learners.multi_step import build_finetune_fns
+    from orbit_tpu_torch.models.recognisers import (MultiStepFewShotRecogniser,
+                                                    SingleStepFewShotRecogniser)
+    from orbit_tpu_torch.parallel import (EpisodeDataParallel, ShardedFineTune, ShardedQuery,
+                                          make_mesh)
+    from orbit_tpu_torch.parallel.episode_dp import episode_to_device, stack_group
+    from orbit_tpu_torch.utils.args import parse_args
+    from orbit_tpu_torch.utils.optim import init_optimizer
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1)
+    paths = {}
+    try:
+        mesh = make_mesh(1)
+        # episode-DP: a LITE step of one lane, its gradients through NCCL
+        args = SimpleNamespace(tasks_per_batch=2, learn_extractor=True, with_lite=True,
+                               num_lite_samples=16, batch_size=256, optimizer="adam",
+                               learning_rate=1e-4, weight_decay=0.0, betas=(0.9, 0.999),
+                               epsilon=1e-8, momentum=0.0, data_parallel=1, episode_prefetch=1)
+        rec = SingleStepFewShotRecogniser("vit_b_32", batch_size=256,
+                                          dtype=torch.bfloat16).to(dev).init(SEED).train()
+        optimizer = init_optimizer(rec, args)
+        edp = EpisodeDataParallel(rec, args, optimizer, mesh)
+        batch = stack_group([pad_episode(synthetic_train_tasks(num_tasks=1)[0])])
+        torch.cuda.synchronize()
+        kbuild.reset_launch_counts()
+        t0 = time.perf_counter()
+        (loss, _), = edp.batch_grads(batch, torch.Generator().manual_seed(SEED))
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        paths["dist_episode_dp"] = dict(kbuild.LAUNCHES)
+        ours = [p.grad.clone() for p in edp.params]
+        optimizer.zero_grad(set_to_none=True)
+        serial_loss, _ = steps_lib.build_train_task_lite(rec, args)(
+            episode_to_device({k: v[0] for k, v in batch.items()}, dev),
+            torch.Generator().manual_seed(SEED))
+        ref = [p.grad if p.grad is not None else torch.zeros_like(p) for p in edp.params]
+        worst = compare_grads(ours, ref, PATH_REL_TOL, "episode-DP vs serial LITE step")
+        counts = ", ".join(f"{n} {c}" for n, c in paths["dist_episode_dp"].items() if c)
+        print(f"phase 12 (d) one-rank {backend} group ({card}): episode-DP ViT-B/32 LITE "
+              f"step {step_ms:.2f} ms (a first step, cold), loss {loss:.6f} (serial "
+              f"{float(serial_loss):.6f}), {len(ours)} gradients vs serial max abs {worst:.3e}; "
+              f"launches: {counts}")
+
+        # query sharding
+        rec.eval()
+        ep = pad_episode(synthetic_tasks(num_tasks=1)[0])
+        ctx = tuple(torch.from_numpy(a).to(dev) for a in (
+            ep.context_clips, ep.context_labels.astype(np.int64), ep.context_mask,
+            ep.class_mask))
+        query = torch.from_numpy(np.concatenate(ep.video_frames)[:, None]).to(dev)
+        present = ctx[3].bool()
+        with torch.inference_mode():
+            state = rec.personalise(*ctx[:3], ep.num_classes)
+            one = rec.predict(state, query, ctx[3])
+            kbuild.reset_launch_counts()
+            sharded = ShardedQuery(rec, mesh).predict(state, query, ctx[3])
+            torch.cuda.synchronize()
+        paths["dist_query"] = dict(kbuild.LAUNCHES)
+        _, rel = compare(sharded[:, present], one[:, present], 0.0,
+                         PATH_REL_TOL * float(one[:, present].abs().max()), "query sharding")
+        print(f"  query sharding, {query.shape[0]} frames: logits vs one rank max rel {rel:.3e}")
+
+        # FineTuner row sharding (frozen extractor, the CLI's 50 Adam steps)
+        del rec, edp, optimizer
+        ft_args = parse_args("multi-step-learner", [
+            "--data_path", str(workdir / "data"), "--mode", "test", "--classifier", "linear",
+            "--compute_dtype", "bfloat16", "--batch_size", "256", "--frame_size", "224"])
+        ft_rec = MultiStepFewShotRecogniser("vit_b_32", classifier="linear", batch_size=256,
+                                            dtype=torch.bfloat16).to(dev).init(SEED)
+        kbuild.reset_launch_counts()
+        ft = ShardedFineTune(ft_rec, ft_args, mesh)
+        params = ft.personalise(*ctx)
+        logits = ft.predict(params, query, ctx[3])
+        torch.cuda.synchronize()
+        paths["dist_finetune"] = dict(kbuild.LAUNCHES)
+        personalise, predict = build_finetune_fns(ft_rec, ft_args)
+        serial = personalise(*ctx)
+        leaves = MultiStepFewShotRecogniser.task_leaves
+        worst = compare_grads([t.detach() for t in leaves(params)],
+                              [t.detach() for t in leaves(serial)], PATH_REL_TOL,
+                              "FineTuner row sharding vs serial task parameters")
+        ref_logits = predict(serial, query, ctx[3])
+        _, rel = compare(logits[:, present], ref_logits[:, present], 0.0,
+                         PATH_REL_TOL * float(ref_logits[:, present].abs().max()),
+                         "FineTuner row sharding logits")
+        print(f"  FineTuner row sharding, {int(ep.context_mask.sum())} context clips, "
+              f"{ft_args.personalize_num_grad_steps} steps: task parameters vs serial max abs "
+              f"{worst:.3e}, logits max rel {rel:.3e}")
+    finally:
+        dist.destroy_process_group()
+
+    # two ranks on the one card over gloo, each its own process
+    out = workdir / "gloo_rank0.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    ctx = torch.multiprocessing.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=_gloo_rank, args=(r, port, str(out), SEED, device))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=300)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if [p.exitcode for p in procs] != [0, 0]:
+        raise AssertionError(f"two-rank gloo group: exit codes {[p.exitcode for p in procs]}")
+    found = json.loads(out.read_text())
+    if "refused" in found:
+        print(f"  two-rank gloo group on one card: gloo refused CUDA tensors "
+              f"({found['refused']}); not run")
+    else:
+        if found["worst"] > PATH_REL_TOL:
+            raise AssertionError(f"two-rank gloo group: summed gradients differ from the "
+                                 f"serial sum by {found['worst']:.3e} of a tensor's largest")
+        counts = ", ".join(f"{n} {c}" for n, c in found["launches"].items() if c)
+        print(f"  two-rank gloo group on one card (CUDA tensors): summed gradients of 2 "
+              f"tasks vs the serial sum, worst tensor max rel {found['worst']:.3e}; rank 0 "
+              f"launches: {counts}")
+    return paths
+
+
 def main(argv=None) -> int:
     global SEED
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one GPU")
@@ -2847,6 +3399,9 @@ def main(argv=None) -> int:
                                                 extractor="efficientnet_b0")}
         # phase 11: pretrained weights from each upstream format through the CLIs
         paths.update(pretrained_phase(torch, card, Path(tmp) / "pretrained"))
+        # phase 12: --task_parallel on one device, then the distributed paths
+        paths.update(task_parallel_phase(torch, card, Path(tmp) / "task_parallel"))
+        paths.update(distributed_phase(torch, card, Path(tmp) / "distributed"))
     # the kernels each path must launch; a kernel's row reports the first
     # path that launches it
     path_kernels = {"eval": ["fused_qkv_attention", "fused_mlp_block"],
@@ -2862,7 +3417,14 @@ def main(argv=None) -> int:
                     "pretrained_vit_b_32_cosine": ["fused_qkv_attention", "fused_mlp_block"],
                     "pretrained_clip_finetuner": ["fused_qkv_attention", "fused_mlp_block"],
                     "pretrained_v2_s": ["mahalanobis_logits", "fused_dw_act"],
-                    "pretrained_cnaps": ["fused_dw_act"]}
+                    "pretrained_cnaps": ["fused_dw_act"],
+                    "task_parallel_vit": ["fused_qkv_attention", "fused_mlp_block"],
+                    "task_parallel_clip_finetuner": ["fused_qkv_attention", "fused_mlp_block"],
+                    "task_parallel_b0_simplecnaps": ["mahalanobis_logits", "fused_dw_act"],
+                    "dist_episode_dp": ["fused_qkv_attention", "fused_mlp_block",
+                                        "fused_qkv_attention_bwd", "fused_mlp_block_bwd"],
+                    "dist_query": ["fused_qkv_attention", "fused_mlp_block"],
+                    "dist_finetune": ["fused_qkv_attention", "fused_mlp_block"]}
     path_of = {}
     for path, names in path_kernels.items():
         unused = [n for n in names if paths[path][n] < 1]

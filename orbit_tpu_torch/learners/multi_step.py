@@ -30,8 +30,17 @@ steps, and the task is charged ``base + per_step * K``. The FiLM leaves
 are f32 masters (``MultiStepFewShotRecogniser.init_task_params``), where
 the JAX learner trains them in their storage dtype. ``--profile_dir``,
 ``--pretrained_extractor_path``, a JAX ``--model_path`` and the bf16 pixel
-wire work as in the single-step learner. Refused with an error, as by the
-single-step learner: ``--data_parallel``/``--task_parallel`` > 1.
+wire work as in the single-step learner.
+
+The parallel axes (``orbit_tpu_torch/parallel/``), as in the single-step
+learner: ``--task_parallel N`` runs groups of N tasks' whole inner loops,
+on one device as one batched loop (``TaskBatchedFineTune``), under
+``torchrun`` with at least N ranks one lane a rank
+(``TaskParallelFineTune``); ``--data_parallel N`` under ``torchrun
+--nproc_per_node N`` shards each task's context rows and query frames over
+the ranks (``ShardedFineTune``). With fewer ranks than asked for (but more
+than one for ``--task_parallel``) it warns and runs single-chip, as the JAX
+learner does; only rank 0 logs and writes ``results.json``.
 """
 from __future__ import annotations
 
@@ -45,10 +54,12 @@ import torch
 from orbit_tpu_torch.data.episodes import pad_episode, prefetch_prepared
 from orbit_tpu_torch.data.transforms import attach_frame_history
 from orbit_tpu_torch.learners.single_step import (SingleStepLearner, check_ported,
-                                                  load_pretrained, select_device)
+                                                  eval_mesh, load_pretrained,
+                                                  select_device)
 from orbit_tpu_torch.models import heads as heads_lib
 from orbit_tpu_torch.models.precision import cast_extractor_params, compute_dtype
 from orbit_tpu_torch.models.recognisers import MultiStepFewShotRecogniser
+from orbit_tpu_torch.parallel.episode_dp import process_rank
 from orbit_tpu_torch.utils.checkpoint import maybe_load_params
 from orbit_tpu_torch.utils.eval_metrics import TestEvaluator
 from orbit_tpu_torch.utils.logging import get_log_files, print_and_log, stats_to_str
@@ -78,14 +89,21 @@ def inner_optimizer(args, task_params) -> torch.optim.Optimizer:
 
 
 def build_finetune_fns(recogniser: MultiStepFewShotRecogniser, args,
-                       num_grad_steps: Optional[int] = None):
+                       num_grad_steps: Optional[int] = None, mesh=None):
     """(personalise, predict) of the FineTuner protocol (orbit_tpu
     multi_step.py:70-202, serial). ``personalise(context_clips, labels,
     context_mask, class_mask)`` returns the trained task parameters;
     ``predict(task_params, clips, class_mask)`` the logits.
     ``num_grad_steps`` overrides ``--personalize_num_grad_steps`` (the MACs
     count runs 1 and 2). Freezes every parameter of ``recogniser``: only
-    the task parameters train, so no backward forms a weight gradient."""
+    the task parameters train, so no backward forms a weight gradient.
+
+    ``mesh`` (``parallel.episode_dp.Mesh``): the context rows are sharded
+    over its ranks (each its contiguous slice of the rows padded to a
+    multiple of the mesh size, the pad rows masked out), the loss is
+    normalised by the rows' global count (an ``all_reduce``), and every
+    step's gradient is summed over the ranks before the update, so every
+    rank takes the serial step (orbit_tpu/parallel/finetune_dp.py)."""
     recogniser.requires_grad_(False)
     steps = args.personalize_num_grad_steps if num_grad_steps is None else num_grad_steps
 
@@ -101,7 +119,13 @@ def build_finetune_fns(recogniser: MultiStepFewShotRecogniser, args,
     def personalise(context_clips, context_labels, context_mask, class_mask):
         task_params = recogniser.init_task_params(class_mask.shape[0])
         optimizer = inner_optimizer(args, task_params)
-        total = torch.clamp(context_mask.float().sum(), min=1.0)
+        if mesh is not None:
+            context_clips, context_labels, context_mask = mesh.local_rows(
+                context_clips, context_labels, context_mask)
+        total = context_mask.float().sum()
+        if mesh is not None:
+            mesh.all_reduce(total)
+        total = torch.clamp(total, min=1.0)
         if recogniser.adapt_features:
             n = context_clips.shape[0]
             eff_b = min(args.batch_size, n)
@@ -120,6 +144,8 @@ def build_finetune_fns(recogniser: MultiStepFewShotRecogniser, args,
             else:
                 loss_sum(task_params, feats, context_labels, context_mask, class_mask,
                          total).backward()
+            if mesh is not None:
+                mesh.all_reduce_grads(MultiStepFewShotRecogniser.task_leaves(task_params))
             optimizer.step()
         return task_params
 
@@ -140,8 +166,9 @@ class MultiStepLearner:
         self.args = args
         self.after_init = after_init
         self.device = select_device(args, device)
-        (self.checkpoint_dir, self.logfile, _, _) = get_log_files(args.checkpoint_dir,
-                                                                  args.model_path)
+        self.rank = process_rank()  # only rank 0 logs and writes files
+        (self.checkpoint_dir, self.logfile, _, _) = get_log_files(
+            args.checkpoint_dir, args.model_path, write=self.rank == 0)
         print_and_log(self.logfile, f"options: {vars(args)}")
         print_and_log(self.logfile, f"checkpoint dir: {self.checkpoint_dir}")
         name = (torch.cuda.get_device_name(self.device) if self.device.type == "cuda"
@@ -153,6 +180,16 @@ class MultiStepLearner:
         if test_queue is None:
             self.init_dataset()
         self.init_model()
+        if getattr(args, "data_parallel", 1) > 1:
+            # within-task DP: each task's context rows and query frames
+            # sharded over the ranks; the protocol's timing and MACs keep
+            # their meaning
+            mesh = eval_mesh(args, self.logfile, "data_parallel", self.device)
+            if mesh is not None:
+                from orbit_tpu_torch.parallel import ShardedFineTune
+
+                ft = ShardedFineTune(self.recogniser, args, mesh)
+                self.personalise_fn, self.predict_fn = ft.personalise, ft.predict
         # the personalise already holds its backward: no thop-style x2
         # (reference multi-step-learner.py:126, ops_counter.py:13)
         self.test_evaluator = TestEvaluator(list(getattr(args, "metrics", ["frame_acc"])),
@@ -241,6 +278,22 @@ class MultiStepLearner:
             # the inner loop trains only the head and the FiLM leaves' f32
             # copies, so the frozen extractor may be stored in bf16
             cast_extractor_params(self.recogniser.extractor)
+        tdp = getattr(args, "task_parallel", 1)
+        if tdp > 1:
+            mesh = eval_mesh(args, self.logfile, "task_parallel", self.device)
+            if mesh is not None:
+                if getattr(args, "data_parallel", 1) > 1:
+                    print_and_log(self.logfile,
+                                  "WARNING: --task_parallel takes precedence over "
+                                  "--data_parallel at eval; within-task row sharding "
+                                  "disabled for this run.")
+                if mesh.size == 1:
+                    print_and_log(self.logfile,
+                                  f"--task_parallel {tdp} on one device: batching task "
+                                  f"groups of {tdp} per call.")
+                self._test_taskdp(evaluator, tdp, mesh)
+                self._finish_eval(evaluator, used, path, save_evaluator)
+                return
         num_context, num_target = [], []
         num_total_tasks = self.test_queue.num_local_tasks()
 
@@ -318,9 +371,106 @@ class MultiStepLearner:
         self.test_timings = {
             "personalise": [t for u in evaluator.all_personalise_times for t in u],
             "inference_per_frame": [t for u in evaluator.all_inference_times for t in u]}
-        if save_evaluator:
+        if save_evaluator and self.rank == 0:
             evaluator.save()
         evaluator.reset()
+
+    def _test_taskdp(self, evaluator, tdp: int, mesh):
+        """The FineTuner protocol in groups of ``tdp`` consecutive tasks of
+        one shape (orbit_tpu/learners/multi_step.py:502 on): each group's
+        inner loops run as one batched loop on one device
+        (``TaskBatchedFineTune``), or one lane a rank
+        (``TaskParallelFineTune``). Results are consumed in arrival order,
+        so the evaluator, the rollups and ``results.json`` equal the serial
+        loop's; a new shape runs once untimed first; the timed calls end in
+        a device sync and are divided over the group's real tasks and real
+        frames; each task's MACs are the serial loop's."""
+        from orbit_tpu_torch.parallel import TaskBatchedFineTune, TaskParallelFineTune
+        from orbit_tpu_torch.parallel.task_dp import (build_query_block, stack_eval_group,
+                                                      trim_videos)
+
+        args = self.args
+        tpf = (TaskParallelFineTune(self.recogniser, args, tdp, mesh) if mesh.size > 1
+               else TaskBatchedFineTune(self.recogniser, args, tdp))
+        num_total_tasks = self.test_queue.num_local_tasks()
+        state = {"tasks_done": 0, "ctx": [], "tgt": []}
+        warmed = set()
+
+        def run_group(group):
+            eps, qbs = [g[1] for g in group], [g[2] for g in group]
+            n_real = len(group)
+            batch = stack_eval_group(eps, qbs, tdp)
+            videos = trim_videos(batch, qbs)  # no padding video is embedded
+            batch = tpf.local(batch)
+            dev = {"context_clips": self._clips_to_device(batch["context_clips"]),
+                   "context_labels": self._to_device(batch["context_labels"].astype(np.int64)),
+                   "context_mask": self._to_device(batch["context_mask"]),
+                   "class_mask": self._to_device(batch["class_mask"])}
+            query = self._clips_to_device(batch["query_clips"])
+            key = (batch["context_clips"].shape, batch["query_clips"].shape,
+                   batch["class_mask"].shape)
+            if key not in warmed:
+                # untimed: the first launch at a shape builds/loads the kernels
+                tpf.predict(tpf.personalise(dev), query, dev["class_mask"])
+                self._sync()
+                warmed.add(key)
+            self._sync()
+            t1 = time.perf_counter()
+            task_params = tpf.personalise(dev)
+            self._sync()
+            per_task = (time.perf_counter() - t1) / n_real
+            t2 = time.perf_counter()
+            logits = tpf.predict(task_params, query, dev["class_mask"]).cpu().numpy()
+            frames = sum(sum(qb.n_frames) for qb in qbs)
+            per_frame = (time.perf_counter() - t2) / float(max(1, frames) * args.clip_length)
+
+            for i, (task_dict, ep, qb) in enumerate(group):
+                evaluator.set_task_object_list(task_dict["object_list"])
+                evaluator.set_task_context_paths(task_dict["context_paths"])
+                evaluator.log_time(per_task, "personalise")
+                n_valid = int(ep.context_mask.sum())
+                ctx = (torch.from_numpy(ep.context_clips),
+                       torch.from_numpy(ep.context_labels.astype(np.int64)), None,
+                       torch.from_numpy(ep.class_mask))  # shapes only
+                evaluator.ops_counter.add_macs(
+                    self.personalise_macs(evaluator.ops_counter, n_valid, ctx))
+                lane = logits[i].reshape(videos, qb.frame_bucket, -1)
+                num_target_clips = 0
+                for vi in range(qb.n_videos):
+                    evaluator.log_time(per_frame, "inference")
+                    evaluator.append_video(lane[vi][:qb.n_frames[vi]], ep.video_labels[vi],
+                                           ep.video_paths[vi])
+                    num_target_clips += qb.n_frames[vi]
+                state["ctx"].append(n_valid)
+                state["tgt"].append(num_target_clips)
+                evaluator.task_complete()
+                state["tasks_done"] += 1
+                state["ctx"], state["tgt"] = self._eval_rollup(
+                    state["tasks_done"], task_dict, evaluator, num_total_tasks,
+                    state["ctx"], state["tgt"])
+
+        def prepare(task_dict):
+            # pad + query block on the prefetch thread, under the device's
+            # inner loops of the previous group
+            ep = pad_episode(task_dict)
+            return ep, build_query_block(ep, args.clip_length)
+
+        depth = getattr(args, "episode_prefetch", 1)
+        prepared = prefetch_prepared(self.test_queue.get_tasks(), prepare,
+                                     depth=max(depth, tdp) if depth > 0 else depth)
+        group, group_key = [], None
+        for task_dict, (ep, qb) in prepared:
+            key = (ep.context_clips.shape, qb.clips.shape, ep.num_classes)
+            if group and key != group_key:
+                run_group(group)  # a shape change runs the partial group
+                group = []
+            group.append((task_dict, ep, qb))
+            group_key = key
+            if len(group) == tdp:
+                run_group(group)
+                group = []
+        if group:
+            run_group(group)
 
     def _eval_rollup(self, tasks_done, task_dict, evaluator, num_total_tasks,
                      ctx_counts, tgt_counts):

@@ -34,9 +34,20 @@ recogniser. Differences from the JAX learner:
 - under ``--host_normalize --compute_dtype bfloat16`` the float pixels are
   rounded to bf16 on the host and shipped at half the bytes, as the JAX
   learner does, so the f32 set encoder sees the same rounded pixels.
-Not ported yet, and refused with an error: ``--data_parallel``/
-``--task_parallel`` > 1 and the ``linear`` head (the multi-step
-learner's). Every mode runs CNAPs (``--adapt_features --classifier
+The parallel axes (``orbit_tpu_torch/parallel/``):
+- ``--task_parallel N`` at validation and test runs groups of N tasks of
+  one shape (``_run_eval_protocol_taskdp``): on one device as one batched
+  call (``TaskBatchedEval``), under ``torchrun`` with at least N ranks one
+  lane a rank (``TaskParallelEval``); with fewer ranks, but more than one,
+  it warns and evaluates serially, as the JAX learner does;
+- ``--data_parallel N`` meta-trains under ``torchrun --nproc_per_node N``,
+  one task a rank (``EpisodeDataParallel``; raises with fewer ranks), and
+  in a run with a test shards every predict's query frames over the ranks
+  (``ShardedQuery``; with fewer ranks it warns and evaluates on one);
+- under ``torchrun`` each rank runs on ``cuda:LOCAL_RANK`` and only rank 0
+  logs and writes checkpoints and ``results.json``.
+Refused with an error: the ``linear`` head (the multi-step learner's).
+Every mode runs CNAPs (``--adapt_features --classifier
 versa``) and SimpleCNAPs
 (``--adapt_features --classifier mahalanobis``) on every backbone:
 meta-training updates the set encoder, the FiLM generator and the Versa
@@ -71,6 +82,8 @@ from orbit_tpu_torch.models import convert
 from orbit_tpu_torch.models.heads import CONFIGURE
 from orbit_tpu_torch.models.precision import cast_extractor_params, compute_dtype
 from orbit_tpu_torch.models.recognisers import SingleStepFewShotRecogniser
+from orbit_tpu_torch.parallel.episode_dp import (barrier, local_device, make_mesh,
+                                                 process_rank, world_size)
 from orbit_tpu_torch.utils.checkpoint import (load_train_state, maybe_load_params,
                                               save_train_state)
 from orbit_tpu_torch.utils.eval_metrics import (TestEvaluator, TrainEvaluator,
@@ -83,17 +96,10 @@ from orbit_tpu_torch.utils.profiling import trace
 
 
 def check_ported(args, heads=tuple(CONFIGURE)) -> None:
-    """Refuse, with a clear error, the options this port does not run yet
-    (``heads``: the classifiers the learner takes)."""
-    refused = []
-    if getattr(args, "data_parallel", 1) > 1:
-        refused.append(f"--data_parallel {args.data_parallel}")
-    if getattr(args, "task_parallel", 1) > 1:
-        refused.append(f"--task_parallel {args.task_parallel}")
+    """Refuse, with a clear error, a classifier the learner does not take
+    (``heads``)."""
     if args.classifier not in heads:
-        refused.append(f"--classifier {args.classifier}")
-    if refused:
-        raise NotImplementedError("not ported to PyTorch yet: " + ", ".join(refused))
+        raise NotImplementedError(f"not ported to PyTorch yet: --classifier {args.classifier}")
 
 
 def load_pretrained(recogniser, args, logfile) -> None:
@@ -106,14 +112,29 @@ def load_pretrained(recogniser, args, logfile) -> None:
 
 
 def select_device(args, device=None) -> torch.device:
-    """``device`` if the caller names one, else ``cuda:<--gpu>``; raises
-    when there is no card, so a run never falls back to the CPU unasked."""
+    """``device`` if the caller names one, else ``cuda:LOCAL_RANK`` under
+    ``torchrun``, else ``cuda:<--gpu>``; raises when there is no card, so a
+    run never falls back to the CPU unasked."""
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port runs on the GPU (pass "
                            "device='cpu' to run its plain versions on the CPU)")
-    return torch.device(f"cuda:{getattr(args, 'gpu', 0)}")
+    return local_device() or torch.device(f"cuda:{getattr(args, 'gpu', 0)}")
+
+
+def eval_mesh(args, logfile, flag: str, device):
+    """The mesh of an eval-time parallel flag (``--data_parallel`` or
+    ``--task_parallel``) asking for ``n`` > 1 devices, or None where the JAX
+    learner warns and evaluates single-chip: more than one rank but fewer
+    than ``n``; and, for ``--data_parallel``, a single process."""
+    n = getattr(args, flag)
+    ranks = world_size()
+    if ranks >= n or (flag == "task_parallel" and ranks == 1):
+        return make_mesh(device=device)
+    print_and_log(logfile, f"WARNING: --{flag} {n} requested but only {ranks} "
+                           f"device(s) visible; evaluating single-chip.")
+    return None
 
 
 class SingleStepLearner:
@@ -132,8 +153,15 @@ class SingleStepLearner:
         self.args = args
         self.after_init = after_init
         self.device = select_device(args, device)
+        self.rank = process_rank()  # only rank 0 logs and writes files
         (self.checkpoint_dir, self.logfile, self.checkpoint_path_validation,
-         self.checkpoint_path_final) = get_log_files(args.checkpoint_dir, args.model_path)
+         self.checkpoint_path_final) = get_log_files(args.checkpoint_dir, args.model_path,
+                                                     write=self.rank == 0)
+        if world_size() > 1:  # every rank reads the checkpoints that rank 0 writes
+            (self.checkpoint_dir, self.checkpoint_path_validation,
+             self.checkpoint_path_final) = make_mesh(device=self.device).all_gather_object(
+                (self.checkpoint_dir, self.checkpoint_path_validation,
+                 self.checkpoint_path_final))[0]
         print_and_log(self.logfile, f"options: {vars(args)}")
         print_and_log(self.logfile, f"checkpoint dir: {self.checkpoint_dir}")
         name = (torch.cuda.get_device_name(self.device) if self.device.type == "cuda"
@@ -151,6 +179,10 @@ class SingleStepLearner:
         self.test_queue = test_queue
         if train_queue is None and validation_queue is None and test_queue is None:
             self.init_dataset()
+        # multi-device eval: shard each predict's query frames over the ranks
+        self.query_mesh = None
+        if getattr(args, "data_parallel", 1) > 1 and "test" in args.mode:
+            self.query_mesh = eval_mesh(args, self.logfile, "data_parallel", self.device)
         self.init_model()
         self.init_evaluators()
         self.start_epoch = 0
@@ -228,6 +260,10 @@ class SingleStepLearner:
         # reference: freeze_extractor (model/feature_extractors.py:81-87)
         self.recogniser.extractor.requires_grad_(bool(args.learn_extractor))
         self.personalise_fn, self.predict_fn = build_eval_fns(self.recogniser)
+        if self.query_mesh is not None:
+            from orbit_tpu_torch.parallel import ShardedQuery
+
+            self.predict_fn = ShardedQuery(self.recogniser, self.query_mesh).predict
 
     def init_evaluators(self):
         self.evaluation_metrics = list(getattr(self.args, "metrics", ["frame_acc"]))
@@ -302,11 +338,24 @@ class SingleStepLearner:
             self.validation_evaluator.replace(state["best_stats"])
             print_and_log(self.logfile, f"resumed from {resume_from} at epoch {self.start_epoch}")
 
+        edp = None
+        if getattr(args, "data_parallel", 1) > 1:
+            # one task a rank; raises with fewer ranks than asked for
+            from orbit_tpu_torch.parallel import EpisodeDataParallel
+
+            edp = EpisodeDataParallel(self.recogniser, args, optimizer,
+                                      make_mesh(args.data_parallel, self.device),
+                                      to_device=self._train_episode)
         total_steps = self.train_queue.num_users * args.num_train_tasks
         for epoch in range(self.start_epoch, args.epochs):
             losses = []
             since = time.time()
             set_learning_rate(optimizer, schedule(epoch))
+            if edp is not None:
+                losses = edp.train_epoch(self.train_queue.get_tasks(), self.generator,
+                                         self.train_evaluator)
+                self._end_epoch(epoch, losses, optimizer, since)
+                continue
 
             def prepare(task_dict):
                 # pad + pinned H2D on the prefetch thread, under the device's
@@ -335,26 +384,33 @@ class SingleStepLearner:
                                   f"time/task: {int(task_time / 60):d}m{int(task_time % 60):02d}s")
                 if (step + 1) % args.tasks_per_batch == 0 or step == total_steps - 1:
                     apply_update()
+            self._end_epoch(epoch, losses, optimizer, since)
 
-            mean_stats = self.train_evaluator.get_mean_stats()
-            mean_loss = float(np.mean(losses)) if losses else 0.0
-            lr, fe_lr = get_curr_learning_rates(optimizer)
-            seconds = time.time() - since
-            print_and_log(self.logfile, "-" * 120)
-            print_and_log(self.logfile,
-                          f"epoch [{epoch + 1}/{args.epochs}] train loss: {mean_loss:.7f} "
-                          f"{stats_to_str(mean_stats)} lr: {lr:.3e} fe-lr: {fe_lr:.3e} "
-                          f"time/epoch: {int(seconds / 60):d}m{int(seconds % 60):02d}s")
-            print_and_log(self.logfile, "-" * 120)
-            self.train_evaluator.reset()
+        if self.rank == 0:
+            convert.save(self.checkpoint_path_final, self.recogniser.state_dict())
 
+    def _end_epoch(self, epoch: int, losses, optimizer, since: float) -> None:
+        """The epoch's summary, its checkpoint and, from
+        ``--validation_on_epoch``, a validation."""
+        args = self.args
+        mean_stats = self.train_evaluator.get_mean_stats()
+        mean_loss = float(np.mean(losses)) if losses else 0.0
+        lr, fe_lr = get_curr_learning_rates(optimizer)
+        seconds = time.time() - since
+        print_and_log(self.logfile, "-" * 120)
+        print_and_log(self.logfile,
+                      f"epoch [{epoch + 1}/{args.epochs}] train loss: {mean_loss:.7f} "
+                      f"{stats_to_str(mean_stats)} lr: {lr:.3e} fe-lr: {fe_lr:.3e} "
+                      f"time/epoch: {int(seconds / 60):d}m{int(seconds % 60):02d}s")
+        print_and_log(self.logfile, "-" * 120)
+        self.train_evaluator.reset()
+
+        if self.rank == 0:
             save_train_state(os.path.join(self.checkpoint_dir, "checkpoint.ckpt"),
                              epoch + 1, self.recogniser, optimizer,
                              self.validation_evaluator.get_current_best_stats())
-            if (epoch + 1) >= args.validation_on_epoch:
-                self.validate()
-
-        convert.save(self.checkpoint_path_final, self.recogniser.state_dict())
+        if (epoch + 1) >= args.validation_on_epoch:
+            self.validate()
 
     # -------------------------------------------------------- validate ----
     def validate(self):
@@ -368,12 +424,14 @@ class SingleStepLearner:
                       f"validation per-video stats: {stats_to_str(stats_per_video)}\n")
         if evaluator.is_better(stats_per_video):
             evaluator.replace(stats_per_video)
-            convert.save(self.checkpoint_path_validation, self.recogniser.state_dict())
+            if self.rank == 0:
+                convert.save(self.checkpoint_path_validation, self.recogniser.state_dict())
             print_and_log(self.logfile, "best validation model was updated.\n")
         evaluator.reset()
 
     # ------------------------------------------------------------ test ----
     def test(self, path: Optional[str], save_evaluator: bool = True):
+        barrier()  # rank 0's checkpoints are written before any rank reads them
         self.init_model()  # fresh init (reference: test re-inits, :300)
         used = maybe_load_params(path, self.recogniser, self.logfile)
         evaluator = self.test_evaluator
@@ -402,7 +460,7 @@ class SingleStepLearner:
         self.test_timings = {
             "personalise": [t for u in evaluator.all_personalise_times for t in u],
             "inference_per_frame": [t for u in evaluator.all_inference_times for t in u]}
-        if save_evaluator:
+        if save_evaluator and self.rank == 0:
             evaluator.save()
         evaluator.reset()
 
@@ -413,6 +471,21 @@ class SingleStepLearner:
         validate :245-296 / test :298-375); ``with_timing`` logs the
         challenge timers, after one untimed personalise."""
         args = self.args
+        tdp = getattr(args, "task_parallel", 1)
+        if tdp > 1:
+            mesh = eval_mesh(args, self.logfile, "task_parallel", self.device)
+            if mesh is not None:
+                if getattr(args, "data_parallel", 1) > 1:
+                    print_and_log(self.logfile,
+                                  "WARNING: --task_parallel takes precedence over "
+                                  "--data_parallel at eval; within-task query sharding "
+                                  "disabled for this run.")
+                if mesh.size == 1:
+                    print_and_log(self.logfile,
+                                  f"--task_parallel {tdp} on one device: batching task "
+                                  f"groups of {tdp} per call.")
+                return self._run_eval_protocol_taskdp(queue, evaluator, num_tasks_per_user,
+                                                      split_name, with_timing, tdp, mesh)
         num_context, num_target = [], []
         num_total_tasks = queue.num_local_tasks()
         ops_counter = getattr(evaluator, "ops_counter", None)
@@ -497,6 +570,109 @@ class SingleStepLearner:
             num_context, num_target = self._eval_rollup(
                 step + 1, task_dict, queue, evaluator, split_name, num_tasks_per_user,
                 num_total_tasks, num_context, num_target)
+
+    def _run_eval_protocol_taskdp(self, queue, evaluator, num_tasks_per_user: int,
+                                  split_name: str, with_timing: bool, tdp: int, mesh):
+        """The CLU-VE protocol in groups of ``tdp`` consecutive tasks of one
+        shape (orbit_tpu/learners/single_step.py:560-700): one batched
+        personalise and one batched predict a group on one device
+        (``TaskBatchedEval``), one lane a rank across ranks
+        (``TaskParallelEval``). Results are consumed in arrival order, so
+        the evaluator, the rollups and ``results.json`` equal the serial
+        loop's. Each new shape runs once untimed first; a timed call ends
+        in a device sync and is divided over the group's real tasks
+        (personalise) and real frames (inference)."""
+        from orbit_tpu_torch.parallel import TaskBatchedEval, TaskParallelEval
+        from orbit_tpu_torch.parallel.task_dp import (build_query_block, stack_eval_group,
+                                                      trim_videos)
+
+        args = self.args
+        tpe = (TaskParallelEval(self.recogniser, tdp, mesh) if mesh.size > 1
+               else TaskBatchedEval(self.recogniser, tdp))
+        ops_counter = getattr(evaluator, "ops_counter", None)
+        if ops_counter is not None:
+            macs_personalise, _ = build_eval_fns(meta_copy(self.recogniser))
+        state = {"tasks_done": 0, "ctx": [], "tgt": []}
+        warmed = set()
+
+        def run_group(group):
+            eps, qbs = [g[1] for g in group], [g[2] for g in group]
+            n_real = len(group)
+            batch = stack_eval_group(eps, qbs, tdp)
+            videos = trim_videos(batch, qbs)  # no padding video is embedded
+            batch = tpe.local(batch)
+            dev = {"context_clips": self._clips_to_device(batch["context_clips"]),
+                   "context_labels": self._to_device(batch["context_labels"].astype(np.int64)),
+                   "context_mask": self._to_device(batch["context_mask"]),
+                   "class_mask": self._to_device(batch["class_mask"])}
+            query = self._clips_to_device(batch["query_clips"])
+            key = (batch["context_clips"].shape, batch["query_clips"].shape,
+                   batch["class_mask"].shape)
+            if with_timing and key not in warmed:
+                # untimed: the first launch at a shape builds/loads the kernels
+                tpe.predict(tpe.personalise(dev), query, dev["class_mask"])
+                self._sync()
+                warmed.add(key)
+            self._sync()
+            t1 = time.perf_counter()
+            states = tpe.personalise(dev)
+            self._sync()
+            per_task = (time.perf_counter() - t1) / n_real
+            t2 = time.perf_counter()
+            logits = tpe.predict(states, query, dev["class_mask"]).cpu().numpy()
+            frames = sum(sum(qb.n_frames) for qb in qbs)
+            per_frame = (time.perf_counter() - t2) / float(max(1, frames) * args.clip_length)
+
+            for i, (task_dict, ep, qb) in enumerate(group):
+                evaluator.set_task_object_list(task_dict["object_list"])
+                evaluator.set_task_context_paths(task_dict["context_paths"])
+                if with_timing:
+                    evaluator.log_time(per_task, "personalise")
+                n = int(ep.context_mask.sum())
+                if ops_counter is not None:  # counted at shapes only, on the host
+                    ctx = (torch.from_numpy(ep.context_clips[:n]),
+                           torch.from_numpy(ep.context_labels[:n].astype(np.int64)),
+                           torch.from_numpy(ep.context_mask[:n]),
+                           torch.from_numpy(ep.class_mask))
+                    ops_counter.compute_macs("personalise", macs_personalise, *ctx)
+                lane = logits[i].reshape(videos, qb.frame_bucket, -1)
+                num_target_clips = 0
+                for vi in range(qb.n_videos):
+                    if with_timing:
+                        evaluator.log_time(per_frame, "inference")
+                    evaluator.append_video(lane[vi][:qb.n_frames[vi]], ep.video_labels[vi],
+                                           ep.video_paths[vi])
+                    num_target_clips += qb.n_frames[vi]
+                state["ctx"].append(n)
+                state["tgt"].append(num_target_clips)
+                evaluator.task_complete()
+                state["tasks_done"] += 1
+                state["ctx"], state["tgt"] = self._eval_rollup(
+                    state["tasks_done"], task_dict, queue, evaluator, split_name,
+                    num_tasks_per_user, queue.num_local_tasks(), state["ctx"], state["tgt"])
+
+        def prepare(task_dict):
+            # pad + query block on the prefetch thread, under the device's
+            # work on the previous group
+            ep = pad_episode(task_dict)
+            return ep, build_query_block(ep, args.clip_length)
+
+        depth = getattr(args, "episode_prefetch", 1)
+        prepared = prefetch_prepared(queue.get_tasks(), prepare,
+                                     depth=max(depth, tdp) if depth > 0 else depth)
+        group, group_key = [], None
+        for task_dict, (ep, qb) in prepared:
+            key = (ep.context_clips.shape, qb.clips.shape, ep.num_classes)
+            if group and key != group_key:
+                run_group(group)  # a shape change runs the partial group
+                group = []
+            group.append((task_dict, ep, qb))
+            group_key = key
+            if len(group) == tdp:
+                run_group(group)
+                group = []
+        if group:
+            run_group(group)
 
     def _eval_rollup(self, tasks_done, task_dict, queue, evaluator, split_name,
                      num_tasks_per_user, num_total_tasks, num_context, num_target):

@@ -137,6 +137,14 @@ def lite_grad_subset(generator: torch.Generator, context_mask: torch.Tensor,
     return order[:min(num_lite, n)]
 
 
+def lite_runs(m: int, target_rows: int, batch_size: int, train: bool) -> int:
+    """The target batches a LITE step runs, one grad subset each: those
+    with real rows (``m``: the rows up to the last real one), and with
+    BatchNorm statistics (``train``) every batch of the JAX step over the
+    ``target_rows`` of the episode."""
+    return math.ceil((target_rows if train else m) / batch_size)
+
+
 def build_train_task_lite(recogniser: SingleStepFewShotRecogniser, args) -> Callable:
     """LITE meta-training step (single-step-learner.py:212-243). Returns
     fn(episode, generator, grad_idxs=None) -> (loss, logits); ``grad_idxs``
@@ -155,8 +163,7 @@ def build_train_task_lite(recogniser: SingleStepFewShotRecogniser, args) -> Call
         tgt = episode["target_clips"]
         m = _rows_to_run(episode["target_mask"])
         nb = math.ceil(m / batch_size)  # the batches with real rows
-        # with BatchNorm statistics, every batch of the JAX step
-        runs = math.ceil(tgt.shape[0] / batch_size) if train else nb
+        runs = lite_runs(m, tgt.shape[0], batch_size, train)
         if grad_idxs is not None and len(grad_idxs) != runs:
             raise ValueError(f"{len(grad_idxs)} injected subsets for {runs} target batches")
         trainable = _trainable(recogniser)

@@ -77,16 +77,19 @@ class FilmParameterGenerator(nn.Module):
             gen.fc2.reset_parameters(g)
             getattr(self, f"reg__{tag}").normal_(0.0, 0.001, generator=g)
 
-    def forward(self, task_embedding: torch.Tensor):
+    def forward(self, task_embedding: torch.Tensor, lanes: bool = False):
         """(64,) or (1, 64) f32 -> (generated values by dotted name, L2 term
-        of the regularisers)."""
-        e = task_embedding.float().reshape(1, -1)
+        of the regularisers); ``lanes``: (L, 64), one task embedding a lane,
+        -> (L, size) values a leaf."""
+        e = task_embedding.float().reshape(-1, SET_ENCODER_OUTPUT_SIZE)
         generated: FilmValues = {}
         l2 = torch.zeros((), device=e.device)
         for name in self.names:
             tag = name.replace(".", "_")
             reg = getattr(self, f"reg__{tag}")
-            g = getattr(self, f"gen__{tag}")(e).reshape(-1)
+            g = getattr(self, f"gen__{tag}")(e)
+            if not lanes:
+                g = g.reshape(-1)
             generated[name] = g * reg + 1.0 if name.endswith(".scale") else g * reg
             l2 = l2 + (reg ** 2).sum()
         return generated, l2

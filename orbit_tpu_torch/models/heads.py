@@ -6,7 +6,12 @@ multi-step learner rather than configured (:func:`init_linear_head`,
 :func:`predict_linear`).
 
 A ``sample_mask (N,)`` marks valid context rows and a ``class_mask (C,)``
-real classes; padded classes get -1e30 logits. Every configure function
+real classes; padded classes get -1e30 logits. Every configure and predict
+function also takes a leading lane axis on all of its tensors ((L, N, D)
+features, (L, N) labels and masks, (L, C) class masks: L tasks at once,
+``parallel/task_dp.py``), and then returns each lane's head and logits as
+the function does on that lane alone; the Mahalanobis logits take no lane
+axis (#7 runs once per lane). Every configure function
 takes ``(features, labels, sample_mask, num_classes, processors)``, where
 ``processors`` are the recogniser's Versa hyper-networks (None without
 them; only ``versa`` reads them). All head math is f32
@@ -35,20 +40,20 @@ NEG_INF = -1e30
 def masked_class_stats(features: torch.Tensor, labels: torch.Tensor,
                        sample_mask: torch.Tensor, num_classes: int):
     """(one_hot (N, C), counts (C,), means (C, D)), all f32, by one-hot
-    matmul over the valid rows."""
+    matmul over the valid rows (each with the lane axis in front, if any)."""
     features = features.float()
     one_hot = F.one_hot(labels.long(), num_classes).float()
-    one_hot = one_hot * sample_mask.float()[:, None]
-    counts = one_hot.sum(dim=0)
-    sums = one_hot.T @ features
-    means = sums / torch.clamp(counts, min=1.0)[:, None]
+    one_hot = one_hot * sample_mask.float()[..., None]
+    counts = one_hot.sum(dim=-2)
+    sums = one_hot.transpose(-1, -2) @ features
+    means = sums / torch.clamp(counts, min=1.0)[..., None]
     return one_hot, counts, means
 
 
 def _mask_logits(logits: torch.Tensor, class_mask: Optional[torch.Tensor]):
     if class_mask is None:
         return logits
-    return torch.where(class_mask.bool()[None, :], logits,
+    return torch.where(class_mask.bool()[..., None, :], logits,
                        torch.full_like(logits, NEG_INF))
 
 
@@ -62,7 +67,8 @@ def init_linear_head(num_classes: int, feat_dim: int, device=None) -> Dict[str, 
 
 def predict_linear(head, features, logit_scale: float = 1.0,
                    class_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    logits = logit_scale * (features.float() @ head["weight"].T + head["bias"])
+    logits = logit_scale * (features.float() @ head["weight"].transpose(-1, -2)
+                            + head["bias"][..., None, :])
     return _mask_logits(logits, class_mask)
 
 
@@ -70,13 +76,14 @@ def configure_proto(features, labels, sample_mask, num_classes: int,
                     processors=None) -> Dict[str, torch.Tensor]:
     """Euclidean head: weight = 2*prototype, bias = -|prototype|^2."""
     _, counts, means = masked_class_stats(features, labels, sample_mask, num_classes)
-    return {"weight": 2.0 * means, "bias": -(means * means).sum(dim=1),
+    return {"weight": 2.0 * means, "bias": -(means * means).sum(dim=-1),
             "counts": counts}
 
 
 def predict_proto(head, features, logit_scale: float = 1.0,
                   class_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    logits = logit_scale * (features.float() @ head["weight"].T + head["bias"])
+    logits = logit_scale * (features.float() @ head["weight"].transpose(-1, -2)
+                            + head["bias"][..., None, :])
     return _mask_logits(logits, class_mask)
 
 
@@ -94,9 +101,9 @@ def predict_proto_cosine(head, features, logit_scale: float = 1.0,
     w = head["weight"]
     # the eps clamp sits inside the sqrt: padded classes' prototypes are
     # exactly 0 (orbit_tpu heads.py:109-114)
-    f_norm = torch.sqrt(torch.clamp((f * f).sum(dim=1, keepdim=True), min=eps * eps))
-    w_norm = torch.sqrt(torch.clamp((w * w).sum(dim=1, keepdim=True), min=eps * eps))
-    logits = logit_scale * ((f / f_norm) @ (w / w_norm).T)
+    f_norm = torch.sqrt(torch.clamp((f * f).sum(dim=-1, keepdim=True), min=eps * eps))
+    w_norm = torch.sqrt(torch.clamp((w * w).sum(dim=-1, keepdim=True), min=eps * eps))
+    logits = logit_scale * ((f / f_norm) @ (w / w_norm).transpose(-1, -2))
     return _mask_logits(logits, class_mask)
 
 
@@ -118,8 +125,10 @@ class VersaProcessors(nn.Module):
                 lin.reset_parameters(g)
 
     def forward(self, class_means: torch.Tensor):
+        """(C, D) class means -> ((C, D) weight, (C,) bias); a lane axis in
+        front passes through."""
         return (self.weight_processor(class_means),
-                self.bias_processor(class_means).reshape(-1))
+                self.bias_processor(class_means)[..., 0])
 
 
 def configure_versa(features, labels, sample_mask, num_classes: int,
@@ -132,7 +141,8 @@ def configure_versa(features, labels, sample_mask, num_classes: int,
 def predict_versa(head, features, logit_scale: float = 1.0,
                   class_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The generated linear layer (classifier_heads.py:145-151)."""
-    logits = logit_scale * (features.float() @ head["weight"].T + head["bias"])
+    logits = logit_scale * (features.float() @ head["weight"].transpose(-1, -2)
+                            + head["bias"][..., None, :])
     return _mask_logits(logits, class_mask)
 
 
@@ -141,11 +151,11 @@ def _masked_cov(features: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Unbiased covariance over the masked rows (torch.cov correction=1;
     reference: classifier_heads.py:349-368), (D, D) f32."""
     f = features.float()
-    m = mask.float()[:, None]
-    n = torch.clamp(m.sum(), min=1.0)
-    mean = (f * m).sum(dim=0, keepdim=True) / n
+    m = mask.float()[..., None]
+    n = torch.clamp(m.sum(dim=-2, keepdim=True), min=1.0)
+    mean = (f * m).sum(dim=-2, keepdim=True) / n
     centered = (f - mean) * m
-    return centered.T @ centered / torch.clamp(n - 1.0, min=1.0)
+    return centered.transpose(-1, -2) @ centered / torch.clamp(n - 1.0, min=1.0)
 
 
 def configure_mahalanobis(features, labels, sample_mask, num_classes: int,
@@ -155,21 +165,22 @@ def configure_mahalanobis(features, labels, sample_mask, num_classes: int,
     ``lambda_k = n_k / (n_k + 1)``; a single-sample class takes the
     reference's scalar covariance of its one D-vector (:358-361)."""
     f = features.float()
-    d = f.shape[1]
+    d = f.shape[-1]
     one_hot, counts, means = masked_class_stats(f, labels, sample_mask, num_classes)
-    task_cov = _masked_cov(f, sample_mask)
+    task_cov = _masked_cov(f, sample_mask)[..., None, :, :]
     eye = torch.eye(d, device=f.device, dtype=torch.float32)
+    one_hot_t = one_hot.transpose(-1, -2)                   # (C, N)
     # every class's rows, centred on its mean, zero elsewhere: (C, N, D)
-    centered = (f[None, :, :] - means[:, None, :]) * one_hot.T[:, :, None]
-    cov_nd = (centered.transpose(1, 2) @ centered
-              / torch.clamp(counts - 1.0, min=1.0)[:, None, None])
-    single = one_hot.T @ f                                  # (C, D): the row of an n==1 class
-    xc = single - single.mean(dim=1, keepdim=True)
-    cov_1d = (xc * xc).sum(dim=1) / (d - 1)                 # (C,) scalars
-    class_cov = torch.where((counts > 1.0)[:, None, None], cov_nd,
-                            cov_1d[:, None, None].expand_as(cov_nd))
+    centered = (f[..., None, :, :] - means[..., :, None, :]) * one_hot_t[..., None]
+    cov_nd = (centered.transpose(-1, -2) @ centered
+              / torch.clamp(counts - 1.0, min=1.0)[..., None, None])
+    single = one_hot_t @ f                                  # (C, D): the row of an n==1 class
+    xc = single - single.mean(dim=-1, keepdim=True)
+    cov_1d = (xc * xc).sum(dim=-1) / (d - 1)                # (C,) scalars
+    class_cov = torch.where((counts > 1.0)[..., None, None], cov_nd,
+                            cov_1d[..., None, None].expand_as(cov_nd))
     n = torch.clamp(counts, min=1.0)
-    lam = (n / (n + 1.0))[:, None, None]
+    lam = (n / (n + 1.0))[..., None, None]
     precisions = torch.linalg.inv(lam * class_cov + (1.0 - lam) * task_cov + eye)
     return {"means": means, "precisions": precisions, "counts": counts}
 

@@ -213,21 +213,44 @@ class FewShotRecogniser(nn.Module):
                                   train, frame_mask)
         return mean_pool_clips(feats, t)
 
+    def embed_lanes(self, clips: torch.Tensor, film=None) -> torch.Tensor:
+        """(L, N, T, H, W, 3) clips of L tasks -> (L, N, D), no graph, with
+        the lane axis folded into the extractor's batch: chunk i of every
+        lane's frames (``batch_size`` frames a lane) goes through one
+        extractor call of L x ``batch_size`` frames, as the JAX package's
+        vmap over tasks batches the serial chunk loop. Each row's features
+        are those of :meth:`embed_clips` on its lane (the extractor is
+        per-row in eval mode)."""
+        lanes, n, t = clips.shape[:3]
+        frames = clips.reshape(lanes, n * t, *clips.shape[3:])
+        b, feats = self.batch_size, []
+        with torch.set_grad_enabled(False):
+            for i in range(0, n * t, b):
+                chunk = frames[:, i:i + b]
+                out = self._embed_chunk(chunk.reshape(-1, *chunk.shape[2:]), film)
+                feats.append(out.reshape(lanes, chunk.shape[1], -1))
+            feats = torch.cat(feats, dim=1).float()
+        return mean_pool_clips(feats.reshape(lanes * n * t, -1), t).reshape(lanes, n, -1)
+
     # ------------------------------------------------------ set encoding ----
     def encode_set_clips(self, clips: torch.Tensor) -> torch.Tensor:
         """(N, T, H, W, 3) -> (N, T, 64) f32 reps of the DeepSets set
-        encoder, one per frame, ``batch_size`` frames at a time."""
-        n, t = clips.shape[:2]
-        frames, b = clips.reshape(n * t, *clips.shape[2:]), self.batch_size
+        encoder, one per frame, ``batch_size`` frames at a time; (L, N, T,
+        H, W, 3) clips of L tasks -> (L, N, T, 64), L x ``batch_size`` frames
+        at a time (the encoder is per-frame)."""
+        lead = clips.shape[:-3]  # (N, T) or (L, N, T)
+        frames = clips.reshape(-1, *clips.shape[-3:])
+        b = self.batch_size * (lead[0] if len(lead) == 3 else 1)
         return torch.cat([self.set_encoder(self._maybe_normalize(frames[i:i + b]))
-                          for i in range(0, n * t, b)]).reshape(n, t, -1)
+                          for i in range(0, frames.shape[0], b)]).reshape(*lead, -1)
 
     @staticmethod
     def masked_set_mean(reps: torch.Tensor, clip_mask: torch.Tensor) -> torch.Tensor:
-        """Mean of (N, T, 64) per-frame reps over the real clips' frames."""
-        frame_mask = clip_mask.float()[:, None, None].expand(*reps.shape[:2], 1)
-        total = torch.clamp(frame_mask.sum(), min=1.0)
-        return (reps * frame_mask).sum(dim=(0, 1)) / total
+        """Mean of (N, T, 64) per-frame reps over the real clips' frames; a
+        leading lane axis on both gives (L, 64)."""
+        frame_mask = clip_mask.float()[..., None, None].expand(*reps.shape[:-1], 1)
+        total = torch.clamp(frame_mask.sum(dim=(-3, -2, -1)), min=1.0)
+        return (reps * frame_mask).sum(dim=(-3, -2)) / total[..., None]
 
     def task_embedding(self, context_clips: torch.Tensor,
                        clip_mask: torch.Tensor) -> torch.Tensor:
@@ -236,11 +259,12 @@ class FewShotRecogniser(nn.Module):
         few_shot_recognisers.py:361-386)."""
         return self.masked_set_mean(self.encode_set_clips(context_clips), clip_mask)
 
-    def generate_film(self, task_embedding: torch.Tensor):
+    def generate_film(self, task_embedding: torch.Tensor, lanes: bool = False):
         """Task embedding -> (FiLM values by dotted leaf name, L2 term of
         the regularisers) (reference: _generate_film_params,
-        few_shot_recognisers.py:439-451)."""
-        generated, l2 = self.film_generator(task_embedding)
+        few_shot_recognisers.py:439-451); ``lanes``: (L, 64) embeddings of L
+        tasks -> (L, size) values a leaf."""
+        generated, l2 = self.film_generator(task_embedding, lanes)
         initial = get_initial_film_values(self.extractor, self.film_spec)
         return film_values_from_initial(initial, generated), l2
 

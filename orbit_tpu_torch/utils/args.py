@@ -114,15 +114,18 @@ def build_parser(learner: str = "default") -> argparse.ArgumentParser:
     parser.add_argument("--compute_dtype", type=str, default="float32", choices=["float32", "bfloat16"],
                         help="Backbone matmul/conv dtype; heads always run float32.")
     parser.add_argument("--data_parallel", type=int, default=1,
-                        help="Number of chips to shard episodes across (episode-data-parallel via shard_map).")
+                        help="Number of GPUs (torchrun ranks) to shard across: one task a "
+                             "rank in meta-training, each predict's query frames at eval, "
+                             "the FineTuner's context rows and query frames "
+                             "(orbit_tpu_torch/parallel/).")
     parser.add_argument("--task_parallel", type=int, default=1,
                         help="Eval-time task-level parallelism: run N whole "
-                             "CLU-VE tasks concurrently, one per mesh lane "
-                             "(each personalise+predict is independent; "
-                             "orbit_tpu/parallel/task_dp.py). Works on both "
+                             "CLU-VE tasks as one group, as one batched call "
+                             "on one GPU or one task a rank under torchrun "
+                             "(orbit_tpu_torch/parallel/task_dp.py). Works on both "
                              "drivers — the FineTuner runs N whole inner "
-                             "gradient loops concurrently. Results and "
-                             "results.json are identical to the serial loop.")
+                             "gradient loops at once. Results and "
+                             "results.json equal the serial loop's.")
     parser.add_argument("--num_data_threads", type=int, default=4,
                         help="Host threads for JPEG decode in the data loader.")
     parser.add_argument("--num_hosts", type=int, default=0,

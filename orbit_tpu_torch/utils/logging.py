@@ -4,7 +4,8 @@ Capability parity with the reference's ``utils/logging.py`` (print_and_log,
 get_log_files, stats_to_str, time formatters) — reimplemented from scratch.
 
 Copy of ``orbit_tpu/utils/logging.py`` for the PyTorch port, which imports
-nothing of the JAX package; keep the two in step.
+nothing of the JAX package; keep the two in step. The port's only addition:
+:class:`NullLog`, for the ranks of a process group other than 0.
 """
 from __future__ import annotations
 
@@ -14,8 +15,22 @@ from datetime import datetime
 from typing import IO, Optional
 
 
+class NullLog:
+    """The log of a process that writes none (a rank other than 0 of a
+    process group): :func:`print_and_log` neither prints nor writes."""
+
+    def write(self, message: str) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 def print_and_log(log_file: Optional[IO], message: str) -> None:
-    """Print ``message`` to stdout and append it to ``log_file`` if given."""
+    """Print ``message`` to stdout and append it to ``log_file`` if given
+    (neither for a :class:`NullLog`)."""
+    if isinstance(log_file, NullLog):
+        return
     print(message)
     if log_file:
         log_file.write(message + "\n")
@@ -27,9 +42,11 @@ def verify_checkpoint_dir(checkpoint_dir: str) -> None:
         sys.exit(1)
 
 
-def get_log_files(checkpoint_dir: str, model_path: Optional[str] = None):
+def get_log_files(checkpoint_dir: str, model_path: Optional[str] = None,
+                  write: bool = True):
     """Create a timestamped run directory and return (run_dir, logfile,
-    best-checkpoint path, final-checkpoint path).
+    best-checkpoint path, final-checkpoint path); with ``write`` off (a
+    rank other than 0), create nothing and return a :class:`NullLog`.
 
     Mirrors the reference layout: ``<checkpoint_dir>/YYYY-MM-DD-HH-MM-SS/``
     containing ``log.txt``, ``best.ckpt`` and ``final.ckpt``
@@ -40,10 +57,11 @@ def get_log_files(checkpoint_dir: str, model_path: Optional[str] = None):
         verify_checkpoint_dir(os.path.dirname(model_path) or ".")
 
     run_dir = os.path.join(checkpoint_dir, datetime.now().strftime("%Y-%m-%d-%H-%M-%S"))
-    os.makedirs(run_dir, exist_ok=True)
-
     best_path = os.path.join(run_dir, "best.ckpt")
     final_path = os.path.join(run_dir, "final.ckpt")
+    if not write:
+        return run_dir, NullLog(), best_path, final_path
+    os.makedirs(run_dir, exist_ok=True)
     logfile = open(os.path.join(run_dir, "log.txt"), "a", buffering=1)
     return run_dir, logfile, best_path, final_path
 

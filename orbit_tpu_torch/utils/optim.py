@@ -26,16 +26,18 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   reduction: str = "mean") -> torch.Tensor:
     """Masked CE over possibly-padded rows (reference: utils/optim.py:8-9).
     Padded-class logits arrive as -1e30 from the heads; padded rows
-    (mask == 0) add zero and leave the mean's denominator."""
+    (mask == 0) add zero and leave the mean's denominator. With a leading
+    lane axis ((L, N, C) logits, (L, N) labels and mask) it returns each
+    lane's (L,) loss."""
     logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -logp.gather(-1, labels.long()[:, None])[:, 0]
+    nll = -logp.gather(-1, labels.long()[..., None])[..., 0]
     if mask is None:
-        return nll.mean() if reduction == "mean" else nll.sum()
+        return nll.mean(dim=-1) if reduction == "mean" else nll.sum(dim=-1)
     m = mask.float()
-    total = torch.where(m > 0, nll, torch.zeros_like(nll)).sum()
+    total = torch.where(m > 0, nll, torch.zeros_like(nll)).sum(dim=-1)
     if reduction == "sum":
         return total
-    return total / torch.clamp(m.sum(), min=1.0)
+    return total / torch.clamp(m.sum(dim=-1), min=1.0)
 
 
 def make_lr_schedule(args) -> Callable[[int], float]:

@@ -351,6 +351,7 @@ def test_tools_import_no_jax_flax_or_msgpack():
             "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["CUDA_VISIBLE_DEVICES"] = ""
+    env["OMP_NUM_THREADS"] = "1"  # as the one-thread fixture, under a loaded suite
     proc = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr

@@ -191,6 +191,7 @@ def orbit_root(orbit_fixture_tree, tmp_path_factory):
 def _run(code: list, cwd) -> subprocess.CompletedProcess:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["CUDA_VISIBLE_DEVICES"] = ""
+    env["OMP_NUM_THREADS"] = "1"  # as the one-thread fixture, under a loaded suite
     return subprocess.run([sys.executable, *code], cwd=cwd, env=env,
                           capture_output=True, text=True, timeout=300)
 
