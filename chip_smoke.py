@@ -13,9 +13,10 @@ Phases, each of which passes or raises:
    width against ``torch.matmul`` on a ragged shape; kernel A (fused qkv
    attention), kernel B (fused MLP block) and
    their backward kernels against their plain PyTorch versions on the card,
-   at the ViT-B/32 and ViT-S/32 shapes (B = 256 and a ragged 13, S = 50), in
-   f32 and bf16; the fused depthwise tail (#8) at EfficientNet-B0's 8 and
-   EfficientNetV2-S's 4 stride-1 tail shapes at 224 px (B = 256 and 13,
+   at the ViT-B/32 and ViT-S/32 shapes (B = 256 and a ragged 13, S = 50)
+   and at ViT-B/32's 84 px shape (S = 5), in f32 and bf16; the fused
+   depthwise tail (#8) at EfficientNet-B0's 8 and EfficientNetV2-S's 4
+   stride-1 tail shapes at 224 px and B0's 8 at 84 px (B = 256 and 13,
    f32 and bf16, act1 on and off), beside cuDNN's grouped convolution alone,
    and the Mahalanobis logits (#7, D = 1280: the path's batched query,
    M = 1000 against 16 class slots of which 5 are real, the train path's
@@ -180,12 +181,37 @@ Phases, each of which passes or raises:
    two-rank gloo group on the one card (two processes), whose summed
    gradients are held against the serial sum, or whose refusal of CUDA
    tensors is printed.
+13. the configurations of the JAX package that no earlier phase runs, each
+   through the learner and the CLI's flags at full width with the checks
+   of the phase it extends, smallest first (2 warm repeats on the eval
+   paths): (a) ViT-B/32 proto in ``--mode test`` at the CLI's default
+   ``--compute_dtype float32`` (A's and B's f32 routes on a whole path), at
+   224 px and at ``--frame_size 84`` (S = 5), phase 4's checks, its
+   repeats timed through the kernels and through the plain versions; (b)
+   EfficientNet-B0 ProtoNets with ``--learn_extractor`` and no
+   ``--with_lite`` at 84 px in f32 (``--mode train_test``), phase 10's
+   checks with a non-LITE step on the card against the CPU's and #8 on the
+   84 px tails (its K5 tails on 6 x 6 and 3 x 3 frames), the f32 argmax
+   printed; (c)
+   EfficientNetV2-S SimpleCNAPs (``--adapt_features --classifier
+   mahalanobis``, FiLM into the post-affine of #8 in its 28 tails), bf16,
+   phase 6's checks; (d) ViT-B/32-CLIP SimpleCNAPs+LITE meta-training
+   (FiLM from the set encoder and generator into every LayerNorm, kernel
+   B's norm2 affine among them, #4 and #6 in the backward, #7 at D = 768),
+   phase 7's checks with a ViT witness and planted fault (kernel B's plain
+   forward with its f32 stages in f64; its LayerNorm's statistics over all
+   channels but the last), its bf16 gradients printed, then ViT-B/32-CLIP
+   CNAPs (Versa) in ``--mode test``; (e) EfficientNetV2-S ProtoNets+LITE
+   with ``--learn_extractor`` at batch 256 (train-mode ConvBnAct and
+   EdgeResidual blocks on masked batch statistics), phase 10's checks, the
+   f32 argmax printed, and its peak memory. Phase 13's
+   seconds and the whole script's are printed.
 
 The line before the last is ``{"kernels": [...]}`` (launches: kernels A and
 B from phase 4, #4 and #6 from phase 5, #7 and #8 from phase 6; #1 and #2
-are on no path and report their launches over phases 4 to 12 together,
+are on no path and report their launches over phases 4 to 13 together,
 which must be 0; their checks and times are phase 3's; ``launches_by_path``
-gives every kernel's launches on each path, phases 8 to 12's paths
+gives every kernel's launches on each path, phases 8 to 13's paths
 included, ``gemm_ms`` the cuBLAS yardstick of A, B, #4 and #6); the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
@@ -305,11 +331,18 @@ B0_DW_TAILS = {(112, 32, 3, False): 1, (56, 144, 3, True): 1, (28, 240, 5, True)
                (14, 480, 3, True): 2, (14, 480, 5, True): 1, (14, 672, 5, True): 2,
                (7, 1152, 5, True): 3, (7, 1152, 3, True): 1}
 B0_DW_PER_FORWARD = sum(B0_DW_TAILS.values())  # 12
+# the same tails at --frame_size 84 (the stem's 42 px, then 21, 11, 6 and
+# 3): the K5 tails at 6 x 6 and 3 x 3 take a TF-SAME pad as wide as the
+# frame itself
+B0_DW_TAILS_84 = {(42, 32, 3, False): 1, (21, 144, 3, True): 1, (11, 240, 5, True): 1,
+                  (6, 480, 3, True): 2, (6, 480, 5, True): 1, (6, 672, 5, True): 2,
+                  (3, 1152, 5, True): 3, (3, 1152, 3, True): 1}
 # EfficientNetV2-S's stride-1 depthwise tails at 224 px (all in its
 # InvertedResidual stages; orbit_tpu_torch/models/backbones/efficientnet.py
 # V2_S_ARCH): 28 a forward
 V2S_DW_TAILS = {(14, 512, 3, True): 5, (14, 768, 3, True): 1, (14, 960, 3, True): 8,
                 (7, 1536, 3, True): 14}
+V2S_DW_PER_FORWARD = sum(V2S_DW_TAILS.values())  # 28
 # The least time one H100 SXM could take (NVIDIA's data sheet, dense peaks
 # at the full 700 W): 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s f32
 # outside them, 3.35 TB/s of device memory.
@@ -457,6 +490,42 @@ def dw_plain_as(fn):
         depthwise.fused_dw_reference = plain
 
 
+@contextlib.contextmanager
+def mlp_plain_as(fn):
+    """Kernel B's plain forward replaced by ``fn`` (None keeps it); its
+    plain backward stays the analytic one, which recomputes the true
+    forward from the saved input."""
+    from orbit_tpu_torch.ops import mlp_block
+    plain = mlp_block.mlp_block_reference
+    mlp_block.mlp_block_reference = fn or plain
+    try:
+        yield
+    finally:
+        mlp_block.mlp_block_reference = plain
+
+
+def mlp_variant(x, ln_scale, ln_bias, w1, b1, w2, b2, *, ln_eps: float,
+                wide: bool = False, short_norm: bool = False):
+    """Kernel B's plain forward (``mlp_block_reference``) with one change.
+    ``wide`` computes its f32 stages (the LayerNorm, both products, the
+    GELU, the residual) in f64 and keeps its rounding points to x's dtype.
+    ``short_norm`` is a planted fault: the LayerNorm's mean and variance
+    over all channels but the last, as a column tile's edge left out."""
+    import torch
+
+    dt = x.dtype
+    acc = torch.float64 if wide else torch.float32
+    xf = x.to(acc)
+    cols = xf[..., :-1] if short_norm else xf
+    mean = cols.mean(dim=-1, keepdim=True)
+    var = ((cols - mean) ** 2).mean(dim=-1, keepdim=True)
+    xn = ((xf - mean) * torch.rsqrt(var + ln_eps) * ln_scale.to(acc)
+          + ln_bias.to(acc)).to(dt).to(acc)
+    hpre = torch.matmul(xn, w1.to(dt).to(acc)) + b1.to(acc)
+    hg = (0.5 * hpre * (1.0 + torch.erf(hpre * 0.5 ** 0.5))).to(dt).to(acc)
+    return (torch.matmul(hg, w2.to(dt).to(acc)) + b2.to(acc) + xf).to(dt)
+
+
 def dw_variant(x, w, a1, b1, a2, b2, *, act1: bool, act2: bool, wide: bool = False,
                raw_border: bool = False):
     """#8's plain version (``fused_dw_reference``) with one change. ``wide``
@@ -548,13 +617,16 @@ def kernel_phase(torch, card: str) -> dict:
         return torch.randn(*shape, generator=g, device=dev) * scale
 
     print(f"kernels vs plain PyTorch (card: {card}):")
-    for vit, d, heads in (("vit_b_32", 768, 12), ("vit_s_32", 384, 6)):
+    # S = 50 at 224 px; S = 5 at --frame_size 84 (2 x 2 patches and the
+    # class token), where a row tile of A holds many more sequences
+    for vit, d, heads, s in (("vit_b_32", 768, 12, 50), ("vit_s_32", 384, 6, 50),
+                             ("vit_b_32", 768, 12, 5)):
         for dtype_name in ("float32", "bfloat16"):
             dt = getattr(torch, dtype_name)
             rtol, atol = KERNEL_TOL[dtype_name]
             for b in (256, 13):
-                x = randn(b, 50, d).to(dt)
-                cot = randn(b, 50, d).to(dt)
+                x = randn(b, s, d).to(dt)
+                cot = randn(b, s, d).to(dt)
                 qkv = (randn(d, 3 * d, scale=d ** -0.5).to(dt), randn(3 * d, scale=0.1).to(dt))
                 mlp = (1 + randn(d, scale=0.1), randn(d, scale=0.1),
                        randn(d, 4 * d, scale=d ** -0.5).to(dt), randn(4 * d, scale=0.02),
@@ -573,7 +645,7 @@ def kernel_phase(torch, card: str) -> dict:
                     with torch.inference_mode():
                         ours, ref = run(None), run("reference")
                     torch.cuda.synchronize()
-                    where = f"{name} {vit} {dtype_name} B={b}"
+                    where = f"{name} {vit} {dtype_name} B={b}" + (f" S={s}" if s != 50 else "")
                     if name.endswith("_bwd"):
                         max_abs = compare_grads(ours, ref, GRAD_TOL[dtype_name], where)
                         line = f"  {where}: max abs {max_abs:.3e}"
@@ -590,10 +662,10 @@ def kernel_phase(torch, card: str) -> dict:
                                 raise AssertionError(f"{where}: a second call gave other bits")
                             ms = cuda_ms(lambda: run(None))
                             plain_ms = cuda_ms(lambda: run("reference"))
-                        bound_ms, bound_by = bound(name, b, 50, d, dtype_name)
+                        bound_ms, bound_by = bound(name, b, s, d, dtype_name)
                         line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                                  f"{bound_ms:.4f} ms ({bound_by}), same bits on a repeat")
-                        if vit == "vit_b_32" and dtype_name == "bfloat16":
+                        if vit == "vit_b_32" and dtype_name == "bfloat16" and s == 50:
                             rows[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                               bound_by=bound_by)
                             with torch.inference_mode():
@@ -601,7 +673,7 @@ def kernel_phase(torch, card: str) -> dict:
                             line += f"; back to back {b2b:.4f} ms a call"
                     rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], max_abs)
                     print(line)
-                if vit == "vit_b_32" and dtype_name == "bfloat16" and b == 256:
+                if vit == "vit_b_32" and dtype_name == "bfloat16" and b == 256 and s == 50:
                     gemm_yardstick(torch, rows, x, qkv, mlp, cot)
                     for name in ("fused_qkv_attention_bwd", "fused_mlp_block_bwd"):
                         launch_breakdown(torch, lambda: runs[name](None), name, card)
@@ -797,7 +869,8 @@ def device_ms(torch, fn, match: str, calls: int = 10, sessions: int = 3) -> floa
 
 def dw_kernel_phase(torch, card: str) -> dict:
     """Phase 3, #8: the depthwise tail against its plain version at every
-    stride-1 shape of B0 and V2-S (B 256 and 13, f32 and bf16, both act1);
+    stride-1 shape of B0 and V2-S at 224 px and of B0 at 84 px (B 256 and
+    13, f32 and bf16, both act1);
     at B 256 the kernel's device time (``device_ms``), a single call's time,
     the plain version's, cuDNN's grouped convolution alone on a
     channels-last view (a yardstick the port never calls: the convolution
@@ -813,7 +886,8 @@ def dw_kernel_phase(torch, card: str) -> dict:
            "yardstick_ms": 0.0}
     bound_by = set()
     sums = {}
-    for net, tails in (("B0", B0_DW_TAILS), ("V2-S", V2S_DW_TAILS)):
+    for net, tails in (("B0", B0_DW_TAILS), ("V2-S", V2S_DW_TAILS),
+                       ("B0 84px", B0_DW_TAILS_84)):
         for (h, c, k, path_act1), count in tails.items():
             for dtype_name in ("float32", "bfloat16"):
                 dt = getattr(torch, dtype_name)
@@ -1155,26 +1229,29 @@ class TaskQueue:
 
 
 def recorded_run(torch, learner):
-    """``learner.run()`` with the LITE step recording every task's loss and
-    every optimiser update checked: it must move a parameter, and no frozen
-    parameter (``requires_grad`` off) may change by a bit. The launch
-    counts are set to 0 just before the run and read just after it.
-    Returns (losses, per update (tensors moved, tensors with a nonzero
-    gradient, tensors), launches)."""
+    """``learner.run()`` with the train step (LITE or not) recording every
+    task's loss and every optimiser update checked: it must move a
+    parameter, and no frozen parameter (``requires_grad`` off) may change by
+    a bit. The launch counts are set to 0 just before the run and read just
+    after it. Returns (losses, per update (tensors moved, tensors with a
+    nonzero gradient, tensors), launches)."""
     from orbit_tpu_torch.kernels import build as kbuild
     from orbit_tpu_torch.learners import steps as steps_lib
 
     losses, moved = [], []
-    build_lite, build_update = steps_lib.build_train_task_lite, steps_lib.build_apply_update
+    build_lite, build_plain = steps_lib.build_train_task_lite, steps_lib.build_train_task
+    build_update = steps_lib.build_apply_update
 
-    def recorded_lite(recogniser, a):
-        fn = build_lite(recogniser, a)
+    def recorded(build):
+        def build_recorded(recogniser, a):
+            fn = build(recogniser, a)
 
-        def run(*xs, **kw):
-            loss, logits = fn(*xs, **kw)
-            losses.append(float(loss))
-            return loss, logits
-        return run
+            def run(*xs, **kw):
+                loss, logits = fn(*xs, **kw)
+                losses.append(float(loss))
+                return loss, logits
+            return run
+        return build_recorded
 
     def checked_update(optimizer):
         apply = build_update(optimizer)
@@ -1192,26 +1269,34 @@ def recorded_run(torch, learner):
             moved.append((sum(changed), sum(had_grad), len(params)))
         return run
 
-    steps_lib.build_train_task_lite, steps_lib.build_apply_update = recorded_lite, checked_update
+    steps_lib.build_train_task_lite = recorded(build_lite)
+    steps_lib.build_train_task = recorded(build_plain)
+    steps_lib.build_apply_update = checked_update
     kbuild.reset_launch_counts()
     try:
         learner.run()
         torch.cuda.synchronize()
     finally:
-        steps_lib.build_train_task_lite, steps_lib.build_apply_update = build_lite, build_update
+        steps_lib.build_train_task_lite, steps_lib.build_train_task = build_lite, build_plain
+        steps_lib.build_apply_update = build_update
     return losses, moved, dict(kbuild.LAUNCHES)
 
 
 def train_path_phase(torch, card: str, workdir: Path, extractor: str = "vit_b_32",
-                     frame_size: int = 224, target_shots: int = 60) -> dict:
-    """Phases 5 and 10: the port's ProtoNets+LITE meta-training path with
-    ``--learn_extractor`` (ViT-B/32 at 224 px unless told otherwise) in
-    ``--mode train_test``. Before the run, on the ViT, one task's gradients
-    through the kernels against those through the plain versions; on an
-    EfficientNet (phase 10), whose train-mode forwards launch no kernel, one
-    f32 LITE step on the card against the same step on the CPU
+                     frame_size: int = 224, target_shots: int = 60,
+                     dtype: str = "bfloat16", lite: bool = True,
+                     argmax_held: bool = True) -> dict:
+    """Phases 5, 10 and 13 (b, e): the port's ProtoNets meta-training path
+    with ``--learn_extractor`` (ViT-B/32 at 224 px, bf16, with
+    ``--with_lite`` unless told otherwise) in ``--mode train_test``. Before
+    the run, on the ViT, one task's gradients through the kernels against
+    those through the plain versions; on an EfficientNet (phases 10 and
+    13), whose train-mode forwards launch no kernel, one f32 step (LITE or
+    not, as the run) on the card against the same step on the CPU
     (:func:`card_vs_cpu_step`), with every BatchNorm calibrated after each
-    weight draw as in phase 6. Then one warm step traced, and the run."""
+    weight draw as in phase 6. Then one warm step traced, and the run.
+    ``argmax_held``: on an EfficientNet, whether the f32 test task's argmax
+    is held (:func:`effnet_train_checks`) or printed."""
     import numpy as np
 
     from orbit_tpu_torch.data.episodes import pad_episode
@@ -1222,13 +1307,15 @@ def train_path_phase(torch, card: str, workdir: Path, extractor: str = "vit_b_32
     from orbit_tpu_torch.utils.args import parse_args
 
     effnet = extractor.startswith("efficientnet")
+    if not (effnet or lite):
+        raise ValueError("the ViT train path runs with LITE (phase 5)")
     batch, num_lite = 256, 16
     args = parse_args("single-step-learner", [
         "--data_path", str(workdir / "data"), "--checkpoint_dir", str(workdir / "ckpt"),
         "--mode", "train_test", "--feature_extractor", extractor, "--classifier", "proto",
-        "--compute_dtype", "bfloat16", "--batch_size", str(batch),
-        "--frame_size", str(frame_size),
-        "--with_lite", "--learn_extractor", "--num_lite_samples", str(num_lite),
+        "--compute_dtype", dtype, "--batch_size", str(batch),
+        "--frame_size", str(frame_size), *(["--with_lite"] if lite else []),
+        "--learn_extractor", "--num_lite_samples", str(num_lite),
         "--tasks_per_batch", "2", "--epochs", "1", "--num_train_tasks", "1",
         "--num_val_tasks", "1", "--num_test_tasks", "1", "--seed", str(SEED)])
     train_tasks = synthetic_train_tasks(frame_size=frame_size, target_shots=target_shots)
@@ -1252,20 +1339,24 @@ def train_path_phase(torch, card: str, workdir: Path, extractor: str = "vit_b_32
     gen = torch.Generator().manual_seed(SEED)
     subsets = [steps_lib.lite_grad_subset(gen, episode["context_mask"], num_lite)
                for _ in range(batches[0])]
-    step = steps_lib.build_train_task_lite(rec, args)
+    if lite:
+        step = functools.partial(steps_lib.build_train_task_lite(rec, args), episode,
+                                 grad_idxs=subsets)
+    else:
+        step = functools.partial(steps_lib.build_train_task(rec, args), episode)
     if effnet:
-        card_vs_cpu_step(torch, learner, train_tasks[0], card)
-        # the first bf16 train-mode step picks cuDNN's algorithms for its
+        card_vs_cpu_step(torch, learner, train_tasks[0], card, lite)
+        # the first train-mode step picks cuDNN's algorithms for its
         # shapes: not a warm step
         t0 = time.perf_counter()
-        step(episode, grad_idxs=subsets)
+        step()
         torch.cuda.synchronize()
-        print(f"  first bf16 task step (cold): {time.perf_counter() - t0:.2f} s")
+        print(f"  first {dtype} task step (cold): {time.perf_counter() - t0:.2f} s")
     else:
         vit_step_kernels_vs_plain(torch, rec, args, episode, subsets, batch, card)
-    # one warm LITE step under the profiler: device time by kernel group
-    # and the device's idle share
-    device_breakdown(torch, lambda: step(episode, grad_idxs=subsets), card)
+    # one warm step under the profiler: device time by kernel group and the
+    # device's idle share
+    device_breakdown(torch, step, card)
     rec.zero_grad(set_to_none=True)
 
     # the learner's run, with its updates and losses checked; extractor
@@ -1297,8 +1388,17 @@ def train_path_phase(torch, card: str, workdir: Path, extractor: str = "vit_b_32
     if not Path(learner.test_evaluator.json_results_path).exists():
         raise AssertionError("the test protocol after training wrote no results.json")
     if effnet:
+        if lite:  # per task the cache pass, then the grad subset and the batch
+            train_forwards = len(train_tasks) + 2 * sum(batches)
+        else:  # the context and the target rows, a forward a chunk, each
+            # chunk recomputed in the backward where there are more than one
+            def chunked(n):
+                chunks = math.ceil(n / batch)
+                return chunks * (2 if chunks > 1 else 1)
+            train_forwards = sum(chunked(pad_episode(t).context_clips.shape[0])
+                                 + chunked(len(t["target_labels"])) for t in train_tasks)
         effnet_train_checks(torch, learner, launches, forwards, initial, test_tasks[0],
-                            len(train_tasks) + 2 * sum(batches), card)
+                            train_forwards, card, argmax_held)
     else:
         vit_train_checks(launches, forwards["eval"] + forwards["train"], batches, batch,
                          num_lite, train_tasks)
@@ -1377,14 +1477,17 @@ def vit_train_checks(launches: dict, forwards: int, batches, batch: int, num_lit
                                  f"{DEPTH} x {forwards} extractor forwards")
 
 
-def card_vs_cpu_step(torch, learner, task: dict, card: str) -> None:
-    """Phase 10's check of train-mode BatchNorm on the card: one f32 LITE
-    step of copies of the learner's recogniser on the card and on the CPU,
-    on a reduced task at 224 px (5 context clips padded to 8, 4 target clips
-    padded to 8, batch 4, 2 LITE samples, the subsets injected): the
-    context's second chunk and the second target batch hold padding only,
-    so the step runs the masked statistics, the all-padding fallback and a
-    padding-only batch's subset pass. The loss, every extractor gradient
+def card_vs_cpu_step(torch, learner, task: dict, card: str, lite: bool = True) -> None:
+    """Phase 10's check of train-mode BatchNorm on the card (and phase 13's,
+    without LITE where the run has none): one f32 step of copies of the
+    learner's recogniser on the card and on the CPU, on a reduced task at
+    the run's frame size (5 context clips padded to 8, 4 target clips
+    padded to 8, batch 4; with LITE 2 samples, the subsets injected): with
+    LITE the context's second chunk and the second target batch hold
+    padding only, so the step runs the masked statistics, the all-padding
+    fallback and a padding-only batch's subset pass; without, the context
+    runs as two checkpointed chunks (the second of one real clip and three
+    pads), recomputed in the backward. The loss, every extractor gradient
     (against its tensor's largest value, at least 1e-2 of the step's
     largest gradient) and every running statistic after the step (a mean in
     units of the running deviation, a variance against itself) are held to
@@ -1417,8 +1520,11 @@ def card_vs_cpu_step(torch, learner, task: dict, card: str) -> None:
         rec.batch_size = a.batch_size
         rec.zero_grad(set_to_none=True)
         t0 = time.perf_counter()
-        loss, _ = steps_lib.build_train_task_lite(rec, a)(
-            {k: v.to(where) for k, v in ep.items()}, grad_idxs=subsets)
+        here = {k: v.to(where) for k, v in ep.items()}
+        if lite:
+            loss, _ = steps_lib.build_train_task_lite(rec, a)(here, grad_idxs=subsets)
+        else:
+            loss, _ = steps_lib.build_train_task(rec, a)(here)
         loss = float(loss)
         seconds = time.perf_counter() - t0
         out.append((loss, {n: p.grad.cpu() for n, p in rec.extractor.named_parameters()},
@@ -1427,7 +1533,7 @@ def card_vs_cpu_step(torch, learner, task: dict, card: str) -> None:
     (loss, grads, stats, s_card), (loss_cpu, grads_cpu, stats_cpu, s_cpu) = out
     loss_rel = abs(loss - loss_cpu) / max(abs(loss_cpu), 1e-30)
     if loss_rel > F32_PATH_GRAD_TOL:
-        raise AssertionError(f"f32 LITE step loss on the card {loss:.7f}, on the CPU "
+        raise AssertionError(f"f32 step loss on the card {loss:.7f}, on the CPU "
                              f"{loss_cpu:.7f}: {loss_rel:.3e} apart")
     # A tensor whose exact gradient is zero holds rounding noise only: the
     # bias of a BatchNorm that reaches the loss through linear maps into
@@ -1453,15 +1559,16 @@ def card_vs_cpu_step(torch, learner, task: dict, card: str) -> None:
         for name, b in ref.items():
             a = ours[name]
             if not torch.isfinite(a).all():
-                raise AssertionError(f"f32 LITE step on the card: non-finite {name}")
+                raise AssertionError(f"f32 step on the card: non-finite {name}")
             rel[name] = float(((a - b).abs() / scale(name, b)).max())
         name = max(rel, key=rel.get)
         worst[kind] = (name, rel[name])
         if rel[name] > F32_PATH_GRAD_TOL:
-            raise AssertionError(f"f32 LITE step {kind}, card vs CPU: {name} differs by "
+            raise AssertionError(f"f32 step {kind}, card vs CPU: {name} differs by "
                                  f"{rel[name]:.3e} of its scale, more than {F32_PATH_GRAD_TOL}")
-    print(f"EfficientNet-B0 learn_extractor path (card: {card}): one reduced f32 LITE step "
-          f"(5 + 3 pad context, 4 + 4 pad target clips, batch 4) on the card against the "
+    print(f"{learner.args.feature_extractor} learn_extractor path (card: {card}): one "
+          f"reduced f32 {'LITE' if lite else 'non-LITE'} step (5 + 3 pad context, 4 + 4 pad "
+          f"target clips, batch 4, {ep['context_clips'].shape[2]} px) on the card against the "
           f"CPU: loss {loss:.7f} vs {loss_cpu:.7f} ({loss_rel:.3e} apart); " + "; ".join(
               f"{len(grads if kind == 'gradients' else stats)} extractor {kind} within "
               f"{F32_PATH_GRAD_TOL} of their scale (worst {r:.3e}, {name})"
@@ -1470,7 +1577,8 @@ def card_vs_cpu_step(torch, learner, task: dict, card: str) -> None:
 
 
 def effnet_train_checks(torch, learner, launches: dict, forwards: dict, initial: dict,
-                        test_task: dict, train_forwards: int, card: str) -> None:
+                        test_task: dict, train_forwards: int, card: str,
+                        argmax_held: bool = True) -> None:
     """Phase 10's checks after the run: #8 in all 12 stride-1 tails of every
     eval forward (validation and test, on the learned statistics) and in no
     train-mode forward (``train_forwards``: per task the cache pass and two
@@ -1486,18 +1594,22 @@ def effnet_train_checks(torch, learner, launches: dict, forwards: dict, initial:
     the eval frames' own (phase 6 calibrates on them), and random weights
     amplify the difference block after block: the features reach about
     1e5, and the witness moves them by 8% in f32 and 43% in bf16 (PERF.md
-    §6), so the features and logits are printed, not held."""
+    §6), so the features and logits are printed, not held. Where the
+    witness flips the f32 argmax too (B0 at 84 px without LITE: 0.9% of
+    the frames; V2-S: 25.2%; PERF.md §6), ``argmax_held`` off prints
+    it; the stage-by-stage forward and #8's launches stay held."""
     import copy
 
     from orbit_tpu_torch.data.episodes import pad_episode
     from orbit_tpu_torch.models import convert
 
+    per_forward = dw_per_forward(learner.args.feature_extractor)
     if forwards["train"] != train_forwards:
         raise AssertionError(f"{forwards['train']} train-mode extractor forwards, expected "
                              f"{train_forwards}")
-    if launches["fused_dw_act"] != B0_DW_PER_FORWARD * forwards["eval"]:
+    if launches["fused_dw_act"] != per_forward * forwards["eval"]:
         raise AssertionError(f"fused_dw_act: {launches['fused_dw_act']} launches, expected "
-                             f"{B0_DW_PER_FORWARD} x {forwards['eval']} eval forwards and none "
+                             f"{per_forward} x {forwards['eval']} eval forwards and none "
                              f"in the {forwards['train']} train-mode forwards")
     final = convert.load(learner.checkpoint_path_final)
     kinds = {"parameters": [k for k, _ in learner.recogniser.extractor.named_parameters()],
@@ -1507,7 +1619,7 @@ def effnet_train_checks(torch, learner, launches: dict, forwards: dict, initial:
         if still:
             raise AssertionError(f"{len(still)} of {len(keys)} extractor {kind} did not move "
                                  f"in training: {still[:4]}")
-    print(f"  launches: fused_dw_act {launches['fused_dw_act']} = {B0_DW_PER_FORWARD} x "
+    print(f"  launches: fused_dw_act {launches['fused_dw_act']} = {per_forward} x "
           f"{forwards['eval']} eval forwards, none in {forwards['train']} train-mode forwards; "
           f"all {len(kinds['parameters'])} extractor parameter tensors and "
           f"{len(kinds['running statistics'])} running statistics moved")
@@ -1517,7 +1629,10 @@ def effnet_train_checks(torch, learner, launches: dict, forwards: dict, initial:
     rec32.dtype = rec32.extractor.dtype = torch.float32
     ctx = torch.from_numpy(ep.context_clips).to(learner.device)
     card_vs_cpu_eval_forward(torch, rec32, ctx[:16, 0], card)
-    for dtype_name, model in (("float32", rec32), ("bfloat16", learner.recogniser)):
+    # the run's own model too where it computes in bf16
+    models = [("float32", rec32)] + ([("bfloat16", learner.recogniser)]
+                                     if learner.dtype == torch.bfloat16 else [])
+    for dtype_name, model in models:
         errs = []
         with dw_launches_checked(errs), torch.inference_mode():
             model.embed_clips(ctx)
@@ -1529,13 +1644,19 @@ def effnet_train_checks(torch, learner, launches: dict, forwards: dict, initial:
         if worst > DW_TOL[dtype_name]:
             raise AssertionError(f"#8 on the learned statistics ({dtype_name}) differs from "
                                  f"its plain version by {worst:.3e} of its output")
-    for dtype_name, model in (("float32", rec32), ("bfloat16", learner.recogniser)):
-        held = dtype_name == "float32"
+    for dtype_name, model in models:
+        held = dtype_name == "float32" and argmax_held
         print(f"  the test task in {dtype_name}, end to end (argmax "
               f"{'held' if held else 'printed'}):")
         hold_task_kernels_vs_plain(torch, model, ep, f"learn_extractor test task, {dtype_name}",
                                    witness=True, outputs_held=False, argmax_held=held)
     del rec32
+
+
+def dw_per_forward(extractor: str) -> int:
+    """#8's launches in one eval forward of the EfficientNet: a launch a
+    stride-1 tail, at any frame size."""
+    return V2S_DW_PER_FORWARD if extractor == "efficientnet_v2_s" else B0_DW_PER_FORWARD
 
 
 def card_vs_cpu_eval_forward(torch, rec, frames, card: str) -> None:
@@ -1620,55 +1741,71 @@ def print_step_times(torch, seconds, card: str) -> None:
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
 
 
-def film_train_phase(torch, card: str, workdir: Path) -> dict:
-    """Phase 7: FiLM meta-training of SimpleCNAPs with LITE on
-    EfficientNet-B0 at full width (224 px, all 16 MBConv blocks, D = 1280),
-    bf16, through the learner in ``--mode train_test`` (``--adapt_features
-    --classifier mahalanobis --with_lite --num_lite_samples 16 --batch_size
-    256 --tasks_per_batch 2``) over phase 5's synthetic train tasks, with
-    every BatchNorm calibrated after each weight draw, as phase 6. Before
-    the run, one task's target batch through the kernels and through their
-    plain versions, with the same injected subsets: the gradients of every
-    trained parameter (set encoder, FiLM generator) under one fixed upstream
-    gradient of the logits, in f32 (the parameters are f32; only the
-    activations change type) held per tensor to F32_PATH_GRAD_TOL, in bf16
-    held over the whole gradient to BF16_PATH_GRAD_NORM_TOL (a bf16
-    rounding flip of an activation travels back through 16 blocks into
-    per-channel sums that cancel, so per-tensor differences of a tenth
-    appear whatever the kernels do). Beside them, against the same plain
-    route: the witness, #8's plain version with its f32 stages in f64,
-    which shows the size of those differences; and a planted fault, a wrong
-    border in #8's plain version, which the f32 check must see. The whole
-    steps' losses and gradients are printed, as phase 5 prints its whole
-    step. The run must launch #8 in all 12 stride-1 tails of every
-    extractor forward and #7 in every head call, move the trained
-    parameters and keep the frozen extractor's bits."""
+def film_train_phase(torch, card: str, workdir: Path,
+                     extractor: str = "efficientnet_b0", bf16_held: bool = True) -> dict:
+    """Phases 7 and 13 (d): FiLM meta-training of SimpleCNAPs with LITE at
+    full width (224 px; EfficientNet-B0 with all 16 MBConv blocks and D =
+    1280 unless told otherwise, or a ViT, D = 768), bf16, through the
+    learner in ``--mode train_test`` (``--adapt_features --classifier
+    mahalanobis --with_lite --num_lite_samples 16 --batch_size 256
+    --tasks_per_batch 2``) over phase 5's synthetic train tasks, with an
+    EfficientNet's BatchNorms calibrated after each weight draw, as phase 6.
+    Before the run, one task's target batch through the kernels and
+    through their plain versions, with the same injected subsets: the
+    gradients of every trained parameter (set encoder, FiLM generator)
+    under one fixed upstream gradient of the logits, in f32 (the parameters
+    are f32; only the activations change type) held per tensor to
+    F32_PATH_GRAD_TOL, in bf16 held over the whole gradient to
+    BF16_PATH_GRAD_NORM_TOL (a bf16 rounding flip of an activation travels
+    back through the blocks into per-channel sums that cancel, so
+    per-tensor differences of a tenth appear whatever the kernels do).
+    Beside them, against the same plain route: the witness, which shows the
+    size of those differences, and a planted fault, which the f32 check
+    must see. On an EfficientNet the witness is #8's plain version with its
+    f32 stages in f64 and the fault a wrong border in it; on a ViT, kernel
+    B's plain forward with its f32 stages in f64, and its LayerNorm's
+    statistics over all channels but the last (a column tile's edge). The
+    whole steps' losses and gradients are printed, as phase 5 prints its
+    whole step. The run must launch #8 in every stride-1 tail of every
+    EfficientNet forward, or A and B in every layer of every ViT forward
+    and #4 and #6 in every layer of both differentiated forwards of every
+    target batch, and #7 in every head call; move the trained parameters
+    and keep the frozen extractor's bits. ``bf16_held`` off prints the bf16
+    check where the witness alone reaches its limit (FiLM on ViT-B/32-CLIP:
+    0.1165 of the norm against 2^-3; PERF.md §6); the f32 check
+    stays held, and must see the planted fault."""
     import numpy as np
 
     from orbit_tpu_torch.data.episodes import pad_episode
     from orbit_tpu_torch.learners import steps as steps_lib
     from orbit_tpu_torch.learners.single_step import SingleStepLearner
     from orbit_tpu_torch.models.backbones.efficientnet import EfficientNet, calibrate_batchnorm
+    from orbit_tpu_torch.models.backbones.vit import ViT
     from orbit_tpu_torch.models.recognisers import SingleStepFewShotRecogniser
     from orbit_tpu_torch.utils.args import parse_args
 
+    effnet = extractor.startswith("efficientnet")
     batch, num_lite = 256, 16
     args = parse_args("single-step-learner", [
         "--data_path", str(workdir / "data"), "--checkpoint_dir", str(workdir / "ckpt"),
-        "--mode", "train_test", "--feature_extractor", "efficientnet_b0", "--adapt_features",
+        "--mode", "train_test", "--feature_extractor", extractor, "--adapt_features",
         "--classifier", "mahalanobis", "--compute_dtype", "bfloat16",
         "--batch_size", str(batch), "--frame_size", "224", "--with_lite",
         "--num_lite_samples", str(num_lite), "--tasks_per_batch", "2", "--epochs", "1",
         "--num_train_tasks", "1", "--num_val_tasks", "1", "--num_test_tasks", "1",
         "--seed", str(SEED)])
     train_tasks = synthetic_train_tasks()
-    # every task's context frames: each task has its own colour, and
-    # statistics of one task's frames alone put the others' activations
-    # many deviations out, where B0's features grow to about 1e4
-    frames = torch.from_numpy(np.concatenate([t["context_clips"][:, 0] for t in train_tasks]))
+    after_init = None
+    if effnet:
+        # every task's context frames: each task has its own colour, and
+        # statistics of one task's frames alone put the others' activations
+        # many deviations out, where B0's features grow to about 1e4
+        frames = torch.from_numpy(np.concatenate([t["context_clips"][:, 0]
+                                                  for t in train_tasks]))
 
-    def after_init(rec):
-        calibrate_batchnorm(rec.extractor, rec._maybe_normalize(frames.to(rec.pixel_mean.device)))
+        def after_init(rec):
+            calibrate_batchnorm(rec.extractor,
+                                rec._maybe_normalize(frames.to(rec.pixel_mean.device)))
     learner = SingleStepLearner(
         args, train_queue=TaskQueue(train_tasks),
         validation_queue=TaskQueue(synthetic_tasks(1, seed=SEED + 1)),
@@ -1700,14 +1837,16 @@ def film_train_phase(torch, card: str, workdir: Path) -> dict:
         step_worst[dtype_name] = worst_rel(grads[None], grads["reference"])
         del grads
 
-    def fixed_grads(dtype_name, impl, dw_plain=None):
+    plain_as, variant = (dw_plain_as, dw_variant) if effnet else (mlp_plain_as, mlp_variant)
+
+    def fixed_grads(dtype_name, impl, plain=None):
         """The trained parameters' gradients for one target batch under the
-        fixed upstream gradient of the logits; ``dw_plain`` stands in for
-        #8's plain version (forward and recompute)."""
+        fixed upstream gradient of the logits; ``plain`` stands in for the
+        plain version of #8 (forward and recompute) or of B's forward."""
         rec.dtype = rec.extractor.dtype = getattr(torch, dtype_name)
         rec.impl = impl
         try:
-            with dw_plain_as(dw_plain):
+            with plain_as(plain):
                 rec.zero_grad(set_to_none=True)
                 state = rec.personalise_with_lite(
                     episode["context_clips"], episode["context_labels"],
@@ -1720,12 +1859,13 @@ def film_train_phase(torch, card: str, workdir: Path) -> dict:
             rec.impl = None
             rec.zero_grad(set_to_none=True)
 
-    # kernels and plain versions; the plain route with #8's f32 stages in
+    # kernels and plain versions; the plain route with the f32 stages in
     # f64 (the witness: what moving the f32 roundings alone does); the plain
-    # route with a wrong border in #8 (a planted fault)
+    # route with a planted fault
+    fault = {"raw_border": True} if effnet else {"short_norm": True}
     variants = {"kernels": (None,), "plain": ("reference",),
-                "wide": ("reference", functools.partial(dw_variant, wide=True)),
-                "fault": ("reference", functools.partial(dw_variant, raw_border=True))}
+                "wide": ("reference", functools.partial(variant, wide=True)),
+                "fault": ("reference", functools.partial(variant, **fault))}
     read = {}
     for dtype_name in ("float32", "bfloat16"):
         fixed = {v: fixed_grads(dtype_name, *a) for v, a in variants.items()}
@@ -1737,7 +1877,7 @@ def film_train_phase(torch, card: str, workdir: Path) -> dict:
                                   "f32 FiLM gradients under a fixed upstream gradient, "
                                   "kernels vs plain")
         del fixed
-    print(f"FiLM train path, EfficientNet-B0 SimpleCNAPs LITE (card: {card}): one task's "
+    print(f"FiLM train path, {extractor} SimpleCNAPs LITE (card: {card}): one task's "
           + "; ".join(f"{dt} step loss {step_loss[dt, None]:.6f} with the kernels, "
                       f"{step_loss[dt, 'reference']:.6f} plain, gradients differing by at most "
                       f"{step_worst[dt]:.3e} of a tensor's largest value" for dt in step_worst))
@@ -1747,10 +1887,11 @@ def film_train_phase(torch, card: str, workdir: Path) -> dict:
           f"gradient's norm): " + "; ".join(
               f"{dt} {v} ({read[dt, v][0]:.3e}, {read[dt, v][1]:.3e})"
               for dt in ("float32", "bfloat16") for v in ("kernels", "wide", "fault"))
-          + f"; f32 kernels max abs {worst:.3e}")
+          + f"; f32 kernels max abs {worst:.3e}; bf16 "
+          + ("held" if bf16_held else "printed") + f" to {BF16_PATH_GRAD_NORM_TOL} of the norm")
     if read["float32", "fault"][0] <= F32_PATH_GRAD_TOL:
-        raise AssertionError("the f32 gradient check does not see a wrong border in #8")
-    if read["bfloat16", "kernels"][1] > BF16_PATH_GRAD_NORM_TOL:
+        raise AssertionError("the f32 gradient check does not see the planted fault")
+    if bf16_held and read["bfloat16", "kernels"][1] > BF16_PATH_GRAD_NORM_TOL:
         raise AssertionError(f"bf16 FiLM gradients, kernels vs plain, differ by "
                              f"{read['bfloat16', 'kernels'][1]:.3e} of the gradient's norm, "
                              f"more than {BF16_PATH_GRAD_NORM_TOL}")
@@ -1762,44 +1903,52 @@ def film_train_phase(torch, card: str, workdir: Path) -> dict:
     # the learner's run; extractor forwards and head calls counted (the
     # calibration's composed forwards launch no kernel and are not counted)
     forwards, heads = [0], [0]
-    eff_forward, head_logits = EfficientNet.forward, SingleStepFewShotRecogniser.head_logits
+    model = EfficientNet if effnet else ViT
+    model_forward, head_logits = model.forward, SingleStepFewShotRecogniser.head_logits
 
-    def counted_forward(self, x, film=None, impl=None):
+    def counted_forward(self, x, *a, **kw):
         # neither the calibration's composed forwards nor the MACs counter's
         # on a meta copy launch a kernel
-        forwards[0] += impl != "composed" and x.device.type != "meta"
-        return eff_forward(self, x, film, impl)
+        forwards[0] += kw.get("impl") != "composed" and x.device.type != "meta"
+        return model_forward(self, x, *a, **kw)
 
     def counted_head(self, *a, **kw):
         heads[0] += 1
         return head_logits(self, *a, **kw)
 
-    EfficientNet.forward, SingleStepFewShotRecogniser.head_logits = counted_forward, counted_head
+    model.forward, SingleStepFewShotRecogniser.head_logits = counted_forward, counted_head
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
         losses, moved, launches = recorded_run(torch, learner)
     finally:
-        EfficientNet.forward, SingleStepFewShotRecogniser.head_logits = eff_forward, head_logits
+        model.forward, SingleStepFewShotRecogniser.head_logits = model_forward, head_logits
     wall = time.perf_counter() - t0
 
     if len(losses) != len(train_tasks) or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"train losses {losses}")
     if len(moved) != math.ceil(len(train_tasks) / args.tasks_per_batch):
         raise AssertionError(f"{len(moved)} optimiser updates")
-    if launches["fused_dw_act"] != B0_DW_PER_FORWARD * forwards[0]:
-        raise AssertionError(f"fused_dw_act: {launches['fused_dw_act']} launches, expected "
-                             f"{B0_DW_PER_FORWARD} x {forwards[0]} extractor forwards")
-    if launches["mahalanobis_logits"] != heads[0]:
-        raise AssertionError(f"mahalanobis_logits: {launches['mahalanobis_logits']} launches "
-                             f"for {heads[0]} head calls")
+    if effnet:  # a launch of #8 in every stride-1 tail of every forward
+        expected = {"fused_dw_act": dw_per_forward(extractor) * forwards[0]}
+    else:  # A and B in every layer of every forward; #4 and #6 in every
+        # layer of the grad subset's and the target batch's backward
+        expected = {"fused_qkv_attention": DEPTH * forwards[0],
+                    "fused_mlp_block": DEPTH * forwards[0],
+                    "fused_qkv_attention_bwd": DEPTH * 2 * sum(batches),
+                    "fused_mlp_block_bwd": DEPTH * 2 * sum(batches)}
+    expected["mahalanobis_logits"] = heads[0]
+    wrong = {n: (launches[n], c) for n, c in expected.items() if launches[n] != c}
+    if wrong:
+        raise AssertionError(f"launches (counted, expected) for {forwards[0]} extractor "
+                             f"forwards and {heads[0]} head calls: {wrong}")
     if not Path(learner.test_evaluator.json_results_path).exists():
         raise AssertionError("the test protocol after training wrote no results.json")
     print(f"  {len(train_tasks)} tasks, {sum(batches)} target batches, {len(moved)} updates "
           f"(parameter tensors moved, with a nonzero gradient, in all: {moved}), losses "
           f"{[round(x, 6) for x in losses]}, {forwards[0]} extractor forwards, {heads[0]} head "
-          f"calls; launches: fused_dw_act {launches['fused_dw_act']}, mahalanobis_logits "
-          f"{launches['mahalanobis_logits']}; wall {wall:.2f} s")
+          f"calls; launches: " + ", ".join(f"{n} {c}" for n, c in expected.items())
+          + f"; wall {wall:.2f} s")
     print_step_times(torch, learner.train_step_seconds, card)
     return launches
 
@@ -1934,10 +2083,13 @@ def hold_task_kernels_vs_plain(torch, rec, ep, label: str, witness: bool,
 
 def eval_path_phase(torch, card: str, workdir: Path, label: str, flags: list,
                     per_forward: dict, calibrate: bool = False, repeats: int = PATH_REPEATS,
-                    traced: bool = True, after_construct=None, after_load=None) -> dict:
-    """Phases 4 and 6: the port's CLU-VE test protocol through the learner
-    (bf16, batch 256, 224 px, ``flags`` naming the model) on two synthetic
-    tasks, to ``results.json``. Every extractor forward (one per chunk of at
+                    traced: bool = True, after_construct=None, after_load=None,
+                    dtype: str = "bfloat16", frame_size: int = 224,
+                    plain_timed: bool = False) -> dict:
+    """Phases 4, 6, 11, 13 (a, c, d): the port's CLU-VE test protocol
+    through the learner (batch 256; bf16 at 224 px unless told otherwise,
+    ``flags`` naming the model) on two synthetic tasks, to
+    ``results.json``. Every extractor forward (one per chunk of at
     most 256 frames, the untimed warm-up personalise included) must launch
     each kernel of ``per_forward`` that many times, and the Mahalanobis
     kernel must run once per predict call. ``calibrate`` sets the
@@ -1947,7 +2099,8 @@ def eval_path_phase(torch, card: str, workdir: Path, label: str, flags: list,
     median, and traced once (``traced``). ``after_construct`` is given the
     learner before its run; ``after_load`` the recogniser after each load of
     ``--model_path`` (its BatchNorm calibration, where the loaded statistics
-    replace the calibrated ones)."""
+    replace the calibrated ones). ``plain_timed`` repeats task 0 through
+    the plain versions too, for the kernels' share of the path's time."""
     import numpy as np
 
     from orbit_tpu_torch.data.episodes import pad_episode
@@ -1961,9 +2114,9 @@ def eval_path_phase(torch, card: str, workdir: Path, label: str, flags: list,
     batch = 256
     args = parse_args("single-step-learner", [
         "--data_path", str(workdir / "data"), "--checkpoint_dir", str(workdir / "ckpt"),
-        "--mode", "test", *flags, "--compute_dtype", "bfloat16", "--batch_size", str(batch),
-        "--frame_size", "224", "--num_test_tasks", "1", "--seed", str(SEED)])
-    tasks = synthetic_tasks()
+        "--mode", "test", *flags, "--compute_dtype", dtype, "--batch_size", str(batch),
+        "--frame_size", str(frame_size), "--num_test_tasks", "1", "--seed", str(SEED)])
+    tasks = synthetic_tasks(frame_size=frame_size)
     eps = [pad_episode(t) for t in tasks]
     after_init = None
     if calibrate:
@@ -1999,6 +2152,7 @@ def eval_path_phase(torch, card: str, workdir: Path, label: str, flags: list,
     SingleStepFewShotRecogniser.predict = predict_kept
     if after_load is not None:
         single_step.maybe_load_params = load_then
+    torch.cuda.reset_peak_memory_stats()
     kbuild.reset_launch_counts()
     t0 = time.perf_counter()
     try:
@@ -2038,7 +2192,7 @@ def eval_path_phase(torch, card: str, workdir: Path, label: str, flags: list,
     personalise = statistics.mean(timings["personalise"])
     query_frames = sum(int(m.sum()) for ep in eps for m in ep.video_masks)
     counts = ", ".join(f"{n} {launches[n]}" for n in KERNELS if launches[n])
-    print(f"{label} (card: {card}): 224px bf16, batch {batch}, {len(tasks)} tasks, "
+    print(f"{label} (card: {card}): {frame_size}px {dtype}, batch {batch}, {len(tasks)} tasks, "
           f"{query_frames} query frames, {forwards} extractor forwards, {len(logits_seen)} "
           f"predict calls, wall {wall:.2f} s; launches: {counts}")
     print(f"  query frames/s: {1.0 / per_frame:.1f}; time to personalise: "
@@ -2050,22 +2204,27 @@ def eval_path_phase(torch, card: str, workdir: Path, label: str, flags: list,
 
     # the two metrics over warm repeats of task 0, timed as the protocol
     # times them (each call ended by a sync, the logits copied to the host)
-    seconds = {"personalise": [], "predict": []}
-    for _ in range(repeats):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state = learner.personalise_fn(ctx, labels, mask, class_mask)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        learner.predict_fn(state, query, class_mask).cpu()
-        t2 = time.perf_counter()
-        seconds["personalise"].append(t1 - t0)
-        seconds["predict"].append(t2 - t1)
-    fps = [int(real.sum()) / t for t in seconds["predict"]]
-    pers = [1e3 * t for t in seconds["personalise"]]
-    print(f"  task 0 repeated {repeats}x, warm: query frames/s median "
-          f"{statistics.median(fps):.1f} ({min(fps):.1f}-{max(fps):.1f}); time to personalise "
-          f"median {statistics.median(pers):.2f} ms ({min(pers):.2f}-{max(pers):.2f}) ({card})")
+    for impl in (None, "reference") if plain_timed else (None,):
+        rec.impl = impl
+        seconds = {"personalise": [], "predict": []}
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = learner.personalise_fn(ctx, labels, mask, class_mask)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            learner.predict_fn(state, query, class_mask).cpu()
+            t2 = time.perf_counter()
+            seconds["personalise"].append(t1 - t0)
+            seconds["predict"].append(t2 - t1)
+        fps = [int(real.sum()) / t for t in seconds["predict"]]
+        pers = [1e3 * t for t in seconds["personalise"]]
+        print(f"  task 0 repeated {repeats}x, warm, {'the plain versions' if impl else 'kernels'}:"
+              f" query frames/s median {statistics.median(fps):.1f} ({min(fps):.1f}-"
+              f"{max(fps):.1f}); time to personalise median {statistics.median(pers):.2f} ms "
+              f"({min(pers):.2f}-{max(pers):.2f}) ({card})")
+    rec.impl = None
+    print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
 
     def warm_task():
         learner.predict_fn(learner.personalise_fn(ctx, labels, mask, class_mask), query,
@@ -3307,6 +3466,69 @@ def distributed_phase(torch, card: str, workdir: Path, device: str = "cuda:0",
     return paths
 
 
+# ------------------------------------------------------------ phase 13 ----
+
+# warm repeats of task 0 on phase 13's eval paths
+UNRUN_REPEATS = 2
+
+
+def unrun_configs_phase(torch, card: str, workdir: Path) -> dict:
+    """Phase 13: the configurations of the JAX package that no earlier
+    phase runs on the card, each through the port's learner and CLI flags
+    at full width, smallest first, with the earlier phases' checks:
+    (a) ViT-B/32 proto in ``--mode test`` at the CLI's default
+    ``--compute_dtype float32``, at 224 px and then at ``--frame_size 84``
+    (S = 5), its repeats timed through the kernels and through the plain
+    versions; (b) EfficientNet-B0 ProtoNets ``--learn_extractor`` without
+    ``--with_lite`` at 84 px in f32 (phase 10's checks: a non-LITE step on
+    the card against the CPU's, the eval forward stage by stage, #8 launch
+    by launch on the 84 px tails); (c) EfficientNetV2-S SimpleCNAPs (FiLM
+    into its 28 tails' post-affine, the Mahalanobis head) in ``--mode
+    test``, bf16; (d) ViT-B/32-CLIP SimpleCNAPs+LITE meta-training (FiLM
+    into every LayerNorm, #4 and #6 in the backward, the Mahalanobis head
+    at D = 768; phase 7's checks), then ViT-B/32-CLIP CNAPs (Versa) in
+    ``--mode test``; (e) EfficientNetV2-S ProtoNets+LITE with
+    ``--learn_extractor`` at batch 256 (phase 10's checks). Each eval path
+    repeats task 0 warm UNRUN_REPEATS times. Where a witness (a change of
+    f32 rounding alone, without a kernel) reaches an earlier phase's limit,
+    that check is printed and the check that sees a planted fault is held:
+    (b) and (e) print the f32 test task's argmax on random weights and
+    learned statistics (the witness flips 0.9% and 25.2% of the frames)
+    and hold the eval forward stage by stage; (d) prints the bf16
+    gradients' norm (the witness reads 0.1165 against 2^-3) and holds the
+    f32 ones per tensor."""
+    vit = {"fused_qkv_attention": DEPTH, "fused_mlp_block": DEPTH}
+    v2s = {"fused_dw_act": V2S_DW_PER_FORWARD}
+    t0 = time.perf_counter()
+    paths = {}
+    for px in (224, 84):
+        paths[f"f32_vit_{px}"] = eval_path_phase(
+            torch, card, workdir / f"vit_{px}", f"phase 13 (a): ViT-B/32 proto, f32, {px} px",
+            ["--feature_extractor", "vit_b_32", "--classifier", "proto"], vit,
+            repeats=UNRUN_REPEATS, dtype="float32", frame_size=px, plain_timed=True)
+    print("phase 13 (b): EfficientNet-B0 ProtoNets, --learn_extractor without LITE, 84 px, f32")
+    paths["b0_84_non_lite"] = train_path_phase(
+        torch, card, workdir / "b0_84", extractor="efficientnet_b0", frame_size=84,
+        dtype="float32", lite=False, argmax_held=False)
+    paths["v2_s_simplecnaps"] = eval_path_phase(
+        torch, card, workdir / "v2_s_film", "phase 13 (c): EfficientNetV2-S SimpleCNAPs (FiLM, "
+        "Mahalanobis head)", ["--feature_extractor", "efficientnet_v2_s", "--adapt_features",
+                              "--classifier", "mahalanobis"], v2s, calibrate=True,
+        repeats=UNRUN_REPEATS)
+    print("phase 13 (d): ViT-B/32-CLIP SimpleCNAPs+LITE meta-training, then CNAPs test")
+    paths["clip_simplecnaps_train"] = film_train_phase(
+        torch, card, workdir / "clip_film_train", extractor="vit_b_32_clip", bf16_held=False)
+    paths["clip_cnaps"] = eval_path_phase(
+        torch, card, workdir / "clip_cnaps", "phase 13 (d): ViT-B/32-CLIP CNAPs (FiLM, Versa)",
+        ["--feature_extractor", "vit_b_32_clip", "--adapt_features", "--classifier", "versa"],
+        vit, repeats=UNRUN_REPEATS)
+    print("phase 13 (e): EfficientNetV2-S ProtoNets+LITE, --learn_extractor, batch 256")
+    paths["v2_s_learn_extractor"] = train_path_phase(
+        torch, card, workdir / "v2_s_learn", extractor="efficientnet_v2_s", argmax_held=False)
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def main(argv=None) -> int:
     global SEED
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one GPU")
@@ -3339,6 +3561,7 @@ def main(argv=None) -> int:
         return 0
     sys.path.insert(0, str(REPO))
 
+    started = time.perf_counter()
     # phase 1: card
     card = card_line()
     print(f"{card} | torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -3402,6 +3625,8 @@ def main(argv=None) -> int:
         # phase 12: --task_parallel on one device, then the distributed paths
         paths.update(task_parallel_phase(torch, card, Path(tmp) / "task_parallel"))
         paths.update(distributed_phase(torch, card, Path(tmp) / "distributed"))
+        # phase 13: the configurations that no earlier phase runs
+        paths.update(unrun_configs_phase(torch, card, Path(tmp) / "unrun"))
     # the kernels each path must launch; a kernel's row reports the first
     # path that launches it
     path_kernels = {"eval": ["fused_qkv_attention", "fused_mlp_block"],
@@ -3424,7 +3649,16 @@ def main(argv=None) -> int:
                     "dist_episode_dp": ["fused_qkv_attention", "fused_mlp_block",
                                         "fused_qkv_attention_bwd", "fused_mlp_block_bwd"],
                     "dist_query": ["fused_qkv_attention", "fused_mlp_block"],
-                    "dist_finetune": ["fused_qkv_attention", "fused_mlp_block"]}
+                    "dist_finetune": ["fused_qkv_attention", "fused_mlp_block"],
+                    "f32_vit_224": ["fused_qkv_attention", "fused_mlp_block"],
+                    "f32_vit_84": ["fused_qkv_attention", "fused_mlp_block"],
+                    "b0_84_non_lite": ["fused_dw_act"],
+                    "v2_s_simplecnaps": ["mahalanobis_logits", "fused_dw_act"],
+                    "clip_simplecnaps_train": ["fused_qkv_attention", "fused_mlp_block",
+                                               "fused_qkv_attention_bwd", "fused_mlp_block_bwd",
+                                               "mahalanobis_logits"],
+                    "clip_cnaps": ["fused_qkv_attention", "fused_mlp_block"],
+                    "v2_s_learn_extractor": ["fused_dw_act"]}
     path_of = {}
     for path, names in path_kernels.items():
         unused = [n for n in names if paths[path][n] < 1]
@@ -3458,6 +3692,7 @@ def main(argv=None) -> int:
                         "yardstick_ms": rows[name].get("yardstick_ms"),
                         "launches_by_path": {path: launches[name]
                                              for path, launches in paths.items()}})
+    print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all, build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

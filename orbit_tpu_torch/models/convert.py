@@ -144,24 +144,31 @@ def _expected_keys(flat: Dict[str, np.ndarray], effnet: str | None):
     return keys
 
 
-def from_jax_variables(tree: Mapping) -> Dict[str, torch.Tensor]:
+def from_jax_variables(tree: Mapping, expected=None) -> Dict[str, torch.Tensor]:
     """JAX recogniser ``variables`` (nested dicts of arrays) -> port state
-    dict (f32 CPU tensors, as the JAX package stores its parameters)."""
+    dict (f32 CPU tensors, as the JAX package stores its parameters).
+    ``expected``: the port's keys the tree must fill exactly (a given
+    recogniser's, or a subset such as its parameters' names); by default
+    those of fresh modules of the components the tree holds."""
     flat = _flatten(tree)
-    stem = flat.get("params/extractor/conv_stem/kernel")
-    if stem is None:  # a ViT: its own mapping, then the other components
+    vit = "params/extractor/conv_stem/kernel" not in flat
+    if vit:  # a ViT: its own mapping, then the other components
         state = _vit_state(flat)
         rest = {p: v for p, v in flat.items() if not p.startswith("params/extractor/")}
-        effnet = None
     else:
-        effnet = {32: "efficientnet_b0", 24: "efficientnet_v2_s"}.get(stem.shape[-1])
-        if effnet is None:
-            raise ValueError(f"unknown EfficientNet stem {stem.shape}")
         state, rest = {}, flat
     state.update(_renamed(rest))
-    expected = _expected_keys(flat, effnet)
-    if effnet is None:
-        expected |= {k for k in state if k.startswith("extractor.")}
+    if expected is None:
+        effnet = None
+        if not vit:
+            stem = flat["params/extractor/conv_stem/kernel"]
+            effnet = {32: "efficientnet_b0", 24: "efficientnet_v2_s"}.get(stem.shape[-1])
+            if effnet is None:
+                raise ValueError(f"unknown EfficientNet stem {stem.shape}")
+        expected = _expected_keys(flat, effnet)
+        if vit:
+            expected |= {k for k in state if k.startswith("extractor.")}
+    expected = set(expected)
     unused = sorted(set(state) - expected)
     if unused:
         raise ValueError(f"JAX leaves the port does not map: {unused[:5]}")

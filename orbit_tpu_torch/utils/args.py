@@ -141,9 +141,11 @@ def build_parser(learner: str = "default") -> argparse.ArgumentParser:
                              "scripts/convert_checkpoint.py). The reference downloads "
                              "timm/CLIP checkpoints at construction.")
     parser.add_argument("--resume_from", type=str, default=None,
-                        help="Path to the port's checkpoint.ckpt to resume training from "
-                             "(the reference's load_checkpoint is dead code; wired here). "
-                             "A JAX train state (flax msgpack) is refused.")
+                        help="Path to a checkpoint.ckpt to resume training from: the "
+                             "port's, or the JAX package's train state (flax msgpack with "
+                             "its optax opt_state), mapped onto the port's optimiser by "
+                             "parameter name (the reference's load_checkpoint is dead "
+                             "code; wired here).")
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="Write a torch.profiler Chrome trace of the run here "
                              "(trace.json; view in Perfetto or chrome://tracing).")

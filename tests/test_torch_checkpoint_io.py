@@ -11,8 +11,9 @@ held against the JAX package (``orbit_tpu/utils/checkpoint.py`` on
 - ``--model_path`` content: a JAX variables file and the port's torch file
   both load (``convert.load``), whatever their names; a full CNAPs
   recogniser's variables go both ways between the packages bit for bit
-  (``to_jax_variables`` / ``from_jax_variables``); a JAX train state is
-  refused by ``--resume_from`` with ``NotImplementedError``;
+  (``to_jax_variables`` / ``from_jax_variables``); a JAX train state whose
+  variables are no recogniser's is refused by ``--resume_from`` with a
+  ValueError naming its leaves;
 - the full-model converter (``--full_model``) on
   ``tests/test_convert_full.py``'s fake CNAPs checkpoint against the JAX
   ``convert_recogniser_checkpoint``.
@@ -166,17 +167,22 @@ def test_full_recogniser_variables_round_trip(jax_cnaps, tmp_path):
 
 
 def test_jax_train_state_is_refused(tmp_path):
-    """``--resume_from`` of a JAX train state (an optax opt_state) is not
-    ported: a clear NotImplementedError; ``--model_path`` of one is a
-    ValueError naming the file."""
+    """``--resume_from`` reads a JAX train state by content and maps it by
+    name (tests/test_torch_resume.py): a tiny one whose variables are no
+    recogniser's is refused with a ValueError naming the file and the
+    leaves, before anything is loaded; ``--model_path`` of a train state is
+    a ValueError naming the file."""
     path = str(tmp_path / "checkpoint.ckpt")
     jax_checkpoint.save_checkpoint(path, {
         "epoch": 1, "variables": {"params": {"x": np.ones(2, np.float32)}},
         "opt_state": [{"mu": np.zeros(2, np.float32)}], "best_stats": {}})
     rec = SingleStepFewShotRecogniser("vit_s_32", frame_size=64)
+    before = {k: v.clone() for k, v in rec.state_dict().items()}
     optimizer = torch.optim.Adam(rec.parameters())
-    with pytest.raises(NotImplementedError, match="JAX train state"):
+    with pytest.raises(ValueError, match=r"checkpoint\.ckpt: variables: .*params/extractor/"):
         checkpoint.load_train_state(path, rec, optimizer)
+    assert all(torch.equal(before[k], v) for k, v in rec.state_dict().items())
+    assert not optimizer.state
     with pytest.raises(ValueError, match="not recogniser variables"):
         convert.load(path)
 

@@ -35,9 +35,13 @@ from orbit_tpu_torch.ops.mahalanobis import mahalanobis_reference
 
 DW_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
 MAHALANOBIS_TOL = 1e-5
-# (H = W, C, K) of the stride-1 tails: B0's 8 shapes, then V2-S's 4
+# (H = W, C, K) of the stride-1 tails: B0's 8 shapes, then V2-S's 4, at
+# 224 px; then B0's 8 at --frame_size 84, where the K5 tails at 6 x 6 and
+# 3 x 3 take a TF-SAME pad as wide as the frame
 TAILS = [(112, 32, 3), (56, 144, 3), (28, 240, 5), (14, 480, 3), (14, 480, 5), (14, 672, 5),
-         (7, 1152, 5), (7, 1152, 3), (14, 512, 3), (14, 768, 3), (14, 960, 3), (7, 1536, 3)]
+         (7, 1152, 5), (7, 1152, 3), (14, 512, 3), (14, 768, 3), (14, 960, 3), (7, 1536, 3),
+         (42, 32, 3), (21, 144, 3), (11, 240, 5), (6, 480, 3), (6, 480, 5), (6, 672, 5),
+         (3, 1152, 5), (3, 1152, 3)]
 tail_ids = ["x".join(map(str, s)) for s in TAILS]
 
 
@@ -155,9 +159,13 @@ def _close_to_max(ours, ref, tol):
 
 # small ragged shapes (N, H, C, K, act1): image groups with a ragged last
 # group, one channel and two rows a thread (C <= 32, K = 5), two channels
-# and one row (K = 3, C > 32), an odd H, a 2-strip row (H = 60)
+# and one row (K = 3, C > 32), an odd H, a 2-strip row (H = 60); then B0's
+# 8 tails at --frame_size 84 on 2 images
 EMULATED = [(3, 9, 16, 5, True), (2, 8, 24, 3, False), (5, 7, 64, 5, True),
-            (2, 60, 8, 3, True), (4, 14, 48, 3, True), (3, 7, 96, 3, True)]
+            (2, 60, 8, 3, True), (4, 14, 48, 3, True), (3, 7, 96, 3, True),
+            (2, 42, 32, 3, False), (2, 21, 144, 3, True), (2, 11, 240, 5, True),
+            (2, 6, 480, 3, True), (2, 6, 480, 5, True), (2, 6, 672, 5, True),
+            (2, 3, 1152, 5, True), (2, 3, 1152, 3, True)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -24,6 +24,12 @@ tests/test_torch_train.py.
   gradients of the set encoder, the FiLM generator and the Versa
   processors against the JAX step's; the JAX step's extractor gradient is
   zero and the port's extractor gets none.
+- One LITE step of SimpleCNAPs and CNAPs with FiLM on a cut ViT (the
+  ViT-B/32-CLIP layout: pre-norm, eps 1e-5; depth 2, width 64, one head,
+  the cut of tests/test_torch_finetuner.py) at 64 px, where S = 5: FiLM
+  into every LayerNorm, kernel B's norm2 affine included; the loss,
+  logits and every gradient of the set encoder, FiLM generator and Versa
+  processors against the JAX step's, at the B0 steps' tolerances.
 - The heads alone: the gradients of the context and query features (and
   of the Versa processors) through the Mahalanobis head's batched inverse
   and through the Versa head, against JAX's, on the inputs of
@@ -183,13 +189,11 @@ def _close_step(loss, logits, j_loss, j_logits):
 
 
 def _close_grads(port_rec, jax_grads):
-    ref = {k: torch.from_numpy(np.array(v, np.float32))
-           for k, v in convert._renamed(convert._flatten({"params": jax_grads})).items()}
+    named = dict(port_rec.named_parameters())
+    ref = convert.from_jax_variables({"params": jax_grads}, expected=set(named))
     assert all(float(r.abs().max()) == 0.0 for k, r in ref.items()
                if k.startswith("extractor."))
     trained = {k: r for k, r in ref.items() if not k.startswith("extractor.")}
-    named = dict(port_rec.named_parameters())
-    assert set(ref) == set(named)
     largest = max(float(r.abs().max()) for r in trained.values())
     assert largest > 0
     for name, p in named.items():
@@ -227,6 +231,52 @@ def test_film_step_matches_jax(variables, classifier, lite):
     else:
         loss, logits = steps.build_train_task(r, ARGS)(_torch_episode(ep))
     _close_step(loss, logits, j_loss, j_logits)
+    _close_grads(r, j_grads)
+
+
+# the cut ViT of tests/test_torch_finetuner.py (its _jax_cut and _context)
+VIT_FRAME, VIT_DIM, VIT_DEPTH = 64, 64, 2
+
+
+@pytest.mark.parametrize("classifier", ["mahalanobis", "versa"], ids=["simplecnaps", "cnaps"])
+def test_vit_film_lite_step_matches_jax(classifier, monkeypatch):
+    """A LITE step of SimpleCNAPs and CNAPs with FiLM on a ViT (the
+    ViT-B/32-CLIP layout, pre-norm and LayerNorm eps 1e-5, cut to depth 2,
+    width 64, one head) at 64 px, where 2 x 2 patches and the class token
+    make S = 5: FiLM from the set encoder and generator into every block's
+    norm1 and norm2 (kernel B's affine) and the final norm, the extractor
+    frozen. The JAX side takes its plain XLA ops (``force_impl``), every
+    leaf of its variables perturbed away from Flax's initial values."""
+    from orbit_tpu.ops.tiny_attention import force_impl
+    from orbit_tpu_torch.models.backbones import vit
+    from tests.test_torch_finetuner import _context, _jax_cut
+
+    monkeypatch.setitem(vit.VIT_CONFIGS, "vit_b_32_clip", (VIT_DIM, VIT_DEPTH, 1, True, 1e-5))
+    rec = _jax_cut(JaxRecogniser(feature_extractor_name="vit_b_32_clip", adapt_features=True,
+                                 classifier=classifier, batch_size=4, learn_extractor=False,
+                                 num_lite_samples=4), True)
+    rng = np.random.default_rng(6)
+    v = jax.tree_util.tree_map(
+        lambda a: np.asarray(a) + 0.05 * rng.standard_normal(a.shape).astype(np.float32),
+        rec.init(jax.random.PRNGKey(3), frame_size=VIT_FRAME))
+    clips, labels, mask, _ = _context(n_real=8, n_pad=8, seed=7)
+    t_clips, t_labels, t_mask, _ = _context(n_real=6, n_pad=7, seed=8)
+    ep = {"context_clips": clips, "context_labels": labels, "context_mask": mask,
+          "class_mask": (np.arange(WAY) < 3).astype(np.float32), "target_clips": t_clips,
+          "target_labels": t_labels, "target_mask": t_mask}
+    key = jax.random.PRNGKey(9)
+    with force_impl("xla"):
+        j_grads, j_loss, j_logits, _ = jax.jit(jax_steps.build_train_task_lite(
+            rec, ARGS, jit=False))(v, {k: jnp.asarray(a) for k, a in ep.items()}, key)
+
+    r = SingleStepFewShotRecogniser("vit_b_32_clip", adapt_features=True, classifier=classifier,
+                                    batch_size=4, frame_size=VIT_FRAME)
+    r.load_state_dict(convert.from_jax_variables(v), strict=True)
+    r.extractor.requires_grad_(False)  # the learner's freeze
+    assert len(r.film_spec) == 4 * VIT_DEPTH + 2
+    loss, logits = steps.build_train_task_lite(r, ARGS)(
+        _torch_episode(ep), grad_idxs=_subsets(key, ep["context_mask"], 2))
+    _close_step(loss, logits, j_loss, np.asarray(j_logits)[:int(t_mask.sum())])
     _close_grads(r, j_grads)
 
 
