@@ -8,13 +8,15 @@ Phases, each of which passes or raises:
 1. card: the ``nvidia-smi`` name and power limit;
 2. build: the CUDA kernels from ``orbit_tpu_torch/csrc``, timed, and the
    registers and spills of the kernels of the bf16 wgmma routes of A, B,
-   #4 and #6 (from nvcc's ``-Xptxas -v`` log);
+   #4 and #6 and of the f32 routes of A and B (from nvcc's ``-Xptxas -v``
+   log);
 3. kernels: the wgmma mainloop alone in every operand layout and tile
    width against ``torch.matmul`` on a ragged shape; kernel A (fused qkv
    attention), kernel B (fused MLP block) and
    their backward kernels against their plain PyTorch versions on the card,
    at the ViT-B/32 and ViT-S/32 shapes (B = 256 and a ragged 13, S = 50)
-   and at ViT-B/32's 84 px shape (S = 5), in f32 and bf16; the fused
+   and at ViT-B/32's 84 px shape (S = 5, with a ragged f32 B = 26: one
+   row tile of 25 sequences and one of 1), in f32 and bf16; the fused
    depthwise tail (#8) at EfficientNet-B0's 8 and EfficientNetV2-S's 4
    stride-1 tail shapes at 224 px and B0's 8 at 84 px (B = 256 and 13,
    f32 and bf16, act1 on and off), beside cuDNN's grouped convolution alone,
@@ -29,10 +31,13 @@ Phases, each of which passes or raises:
    #7's, #8's and SDPA's device time from ``torch.profiler``; each timed
    with
    CUDA events at B = 256 and at #7's path shape, beside its bound, and
-   repeated to show that a second call gives the same bits; A, B, #4 and
-   #6 also back to back, beside cuBLAS bf16 on their products alone (x @
-   W; xn @ W1 and h @ W2; #4's three and #6's five), a yardstick the port
-   never calls, and #4 and #6 with a ``torch.profiler`` breakdown of one
+   repeated to show that a second call gives the same bits, and its share
+   of the bound and its time over the plain version's printed; A, B, #4
+   and #6 also back to back (A's and B's f32 routes at S = 50 and 5 too),
+   beside cuBLAS bf16 on their products alone (x @ W; xn @ W1 and h @ W2;
+   #4's three and #6's five) and cuBLAS f32 with TF32 off on A's and B's
+   at S = 50 and 5, a yardstick the port never calls, and #4 and #6 with
+   a ``torch.profiler`` breakdown of one
    call by launch; and A, B, #4 and #6 timed at the ViT
    train path's other batch sizes (44, the ragged target batch, and 16,
    the LITE grad subset);
@@ -187,7 +192,8 @@ Phases, each of which passes or raises:
    paths): (a) ViT-B/32 proto in ``--mode test`` at the CLI's default
    ``--compute_dtype float32`` (A's and B's f32 routes on a whole path), at
    224 px and at ``--frame_size 84`` (S = 5), phase 4's checks, its
-   repeats timed through the kernels and through the plain versions; (b)
+   repeats timed through the kernels and through the plain versions, and
+   the ratio of their query frames/s printed; (b)
    EfficientNet-B0 ProtoNets with ``--learn_extractor`` and no
    ``--with_lite`` at 84 px in f32 (``--mode train_test``), phase 10's
    checks with a non-LITE step on the card against the CPU's and #8 on the
@@ -212,7 +218,8 @@ B from phase 4, #4 and #6 from phase 5, #7 and #8 from phase 6; #1 and #2
 are on no path and report their launches over phases 4 to 13 together,
 which must be 0; their checks and times are phase 3's; ``launches_by_path``
 gives every kernel's launches on each path, phases 8 to 13's paths
-included, ``gemm_ms`` the cuBLAS yardstick of A, B, #4 and #6); the
+included, ``gemm_ms`` the cuBLAS yardsticks of A, B, #4 and #6 by dtype
+and S, ``float32`` the f32 routes' times at S = 50 and 5); the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
 
@@ -351,13 +358,15 @@ HBM_BYTES_PER_S = 3.35e12
 
 
 # the kernels of the bf16 wgmma routes of A, B, #4 and #6 (csrc/wgmma.cuh),
-# the mainloop's layout check and the bf16 kernels of #1 and #2, whose
-# registers and spills phase 2 prints from nvcc's -Xptxas -v output
-WGMMA_KERNELS = ("fused_qkv_attention_wgmma_kernel", "fused_mlp_block_layernorm_kernel",
-                 "fused_mlp_block_gemm_kernel", "qkv_recompute_kernel",
-                 "attention_bwd_mma_kernel", "mlp_bwd_hidden_kernel", "grads_kernel",
-                 "layer_norm_kernel", "layer_norm_backward_kernel", "wgmma_check_kernel",
-                 "tiny_attention_tile_kernel", "tiny_attention_bwd_mma_kernel")
+# of the f32 routes of A and B (csrc/sgemm.cuh), the mainloop's layout
+# check and the bf16 kernels of #1 and #2, whose registers and spills phase
+# 2 prints from nvcc's -Xptxas -v output
+REGISTER_KERNELS = ("fused_qkv_attention_wgmma_kernel", "fused_mlp_block_layernorm_kernel",
+                    "fused_mlp_block_gemm_kernel", "fused_qkv_attention_f32_kernel",
+                    "fused_mlp_block_sgemm_kernel", "qkv_recompute_kernel",
+                    "attention_bwd_mma_kernel", "mlp_bwd_hidden_kernel", "grads_kernel",
+                    "layer_norm_kernel", "layer_norm_backward_kernel", "wgmma_check_kernel",
+                    "tiny_attention_tile_kernel", "tiny_attention_bwd_mma_kernel")
 
 
 def print_registers(log: Path, names) -> None:
@@ -376,7 +385,8 @@ def print_registers(log: Path, names) -> None:
         # the template arguments: a width, an epilogue, a storage type, the
         # mainloop's operand layouts
         args = [a for pat in (r"I(f)[EL]", r"I13__nv_(bfloat16)", r"Li(\d+)E",
-                              r"(GeluStore|ResidualStore)") for a in re.findall(pat, m.group(1))]
+                              r"(GeluStore(?:F32)?|ResidualStore(?:F32)?)")
+                for a in re.findall(pat, m.group(1))]
         args = ["float" if a == "f" else a for a in args]
         args += ["K" if a == "0" else "MN" for a in
                  re.findall(r"L(?:N5orbit2wg5MajorE|S\d*_)(\d)E", m.group(1))]
@@ -624,7 +634,9 @@ def kernel_phase(torch, card: str) -> dict:
         for dtype_name in ("float32", "bfloat16"):
             dt = getattr(torch, dtype_name)
             rtol, atol = KERNEL_TOL[dtype_name]
-            for b in (256, 13):
+            # B 26 at S 5 (f32): one row tile of 25 sequences and one of 1
+            batches = (256, 13, 26) if s == 5 and dtype_name == "float32" else (256, 13)
+            for b in batches:
                 x = randn(b, s, d).to(dt)
                 cot = randn(b, s, d).to(dt)
                 qkv = (randn(d, 3 * d, scale=d ** -0.5).to(dt), randn(3 * d, scale=0.1).to(dt))
@@ -642,6 +654,8 @@ def kernel_phase(torch, card: str) -> dict:
                         x, *mlp[:5], cot, ln_eps=1e-6, impl=impl),
                 }
                 for name, run in runs.items():
+                    if b == 26 and name.endswith("_bwd"):
+                        continue  # the ragged tiles are the forward routes'
                     with torch.inference_mode():
                         ours, ref = run(None), run("reference")
                     torch.cuda.synchronize()
@@ -652,7 +666,7 @@ def kernel_phase(torch, card: str) -> dict:
                     else:
                         max_abs, max_rel = compare(ours, ref, rtol, atol, where)
                         line = f"  {where}: max abs {max_abs:.3e}, max rel {max_rel:.3e}"
-                    if b == 256:
+                    if b in (256, 26):
                         with torch.inference_mode():
                             again = run(None)
                             torch.cuda.synchronize()
@@ -660,61 +674,81 @@ def kernel_phase(torch, card: str) -> dict:
                             agains = again if isinstance(again, tuple) else (again,)
                             if not all(torch.equal(u, v) for u, v in zip(outs, agains)):
                                 raise AssertionError(f"{where}: a second call gave other bits")
+                        line += "; same bits on a repeat"
+                    if b == 256:
+                        with torch.inference_mode():
                             ms = cuda_ms(lambda: run(None))
                             plain_ms = cuda_ms(lambda: run("reference"))
                         bound_ms, bound_by = bound(name, b, s, d, dtype_name)
                         line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                                 f"{bound_ms:.4f} ms ({bound_by}), same bits on a repeat")
-                        if vit == "vit_b_32" and dtype_name == "bfloat16" and s == 50:
-                            rows[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                              bound_by=bound_by)
-                            with torch.inference_mode():
-                                b2b = cuda_ms_back_to_back(lambda: run(None))
-                            line += f"; back to back {b2b:.4f} ms a call"
+                                 f"{bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f}% of "
+                                 f"it), kernel over plain {ms / plain_ms:.3f}")
+                        timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                     bound_by=bound_by)
+                        if vit == "vit_b_32" and (dtype_name, s) != ("bfloat16", 5):
+                            # the calls enqueued back to back, as a forward's
+                            # layers enqueue them (f32: the forward routes)
+                            if dtype_name == "bfloat16" or not name.endswith("_bwd"):
+                                with torch.inference_mode():
+                                    timed["back_to_back_ms"] = cuda_ms_back_to_back(
+                                        lambda: run(None))
+                                line += f"; back to back {timed['back_to_back_ms']:.4f} ms a call"
+                            if dtype_name == "bfloat16":
+                                rows[name].update(timed)
+                            else:
+                                rows[name].setdefault("float32", {})[f"S={s}"] = timed
                     rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], max_abs)
                     print(line)
+                if vit == "vit_b_32" and b == 256 and (dtype_name, s) != ("bfloat16", 5):
+                    gemm_yardstick(torch, rows, x, qkv, mlp, cot, f"{dtype_name} S={s}")
                 if vit == "vit_b_32" and dtype_name == "bfloat16" and b == 256 and s == 50:
-                    gemm_yardstick(torch, rows, x, qkv, mlp, cot)
                     for name in ("fused_qkv_attention_bwd", "fused_mlp_block_bwd"):
                         launch_breakdown(torch, lambda: runs[name](None), name, card)
     train_shapes_phase(torch, randn)
     return rows
 
 
-def gemm_yardstick(torch, rows: dict, x, qkv, mlp, cot) -> None:
-    """cuBLAS bf16 on the ViT kernels' products alone, at their inputs: A's
-    x @ W; B's xn @ W1 and h @ W2 (xn and h from the staged plain version);
-    #4's x @ W, cast(dqkv) @ W^T and x^T @ cast(dqkv); #6's xn @ W1,
-    g @ W2^T, cast(dhpre) @ W1^T, xn^T @ cast(dhpre) and hg^T @ g (the
-    operands from the staged plain backwards; a transpose is cuBLAS's
-    operand flag, no copy). A yardstick of what the tensor cores give a
-    library GEMM at these shapes; the port never calls it."""
+def gemm_yardstick(torch, rows: dict, x, qkv, mlp, cot, key: str) -> None:
+    """cuBLAS on the ViT kernels' products alone, at their inputs, in x's
+    dtype (f32 with TF32 off, as configure_matmul_precision sets it): A's
+    x @ W; B's xn @ W1 and h @ W2 (xn and h from the staged plain
+    version); in bf16 also #4's x @ W, cast(dqkv) @ W^T and x^T @
+    cast(dqkv), #6's xn @ W1, g @ W2^T, cast(dhpre) @ W1^T, xn^T @
+    cast(dhpre) and hg^T @ g (the operands from the staged plain backwards;
+    a transpose is cuBLAS's operand flag, no copy). A yardstick of what a
+    library GEMM gives at these shapes, kept in each row's ``gemm_ms`` under
+    ``key``; the port never calls it."""
     from orbit_tpu_torch.ops.mlp_block import mlp_block_backward_stages, mlp_block_stages
     from orbit_tpu_torch.ops.tiny_attention import qkv_attention_backward_stages
+    if x.dtype == torch.float32 and torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the f32 yardstick must run with TF32 off")
     x2 = x.reshape(-1, x.shape[-1])
     heads = x.shape[-1] // 64
     with torch.inference_mode():
         xn, h, _ = mlp_block_stages(x, *mlp, ln_eps=1e-6)
         xn, h = xn.reshape(x2.shape), h.reshape(x2.shape[0], -1)
-        (_, hg, dhb, _), _ = mlp_block_backward_stages(x, *mlp[:5], cot, ln_eps=1e-6)
-        hg, dhb = hg.reshape(h.shape), dhb.reshape(h.shape)
-        (_, dqkv), _ = qkv_attention_backward_stages(x, *qkv, cot, heads)
-        g2 = cot.reshape(x2.shape)
         w1, w2 = mlp[2].contiguous(), mlp[4].contiguous()
         w = qkv[0].contiguous()
-        products = {
-            "fused_qkv_attention": {"x @ W": (x2, w)},
-            "fused_mlp_block": {"xn @ W1": (xn, w1), "h @ W2": (h, w2)},
-            "fused_qkv_attention_bwd": {"x @ W": (x2, w), "dqkv @ W^T": (dqkv, w.t()),
-                                        "x^T @ dqkv": (x2.t(), dqkv)},
-            "fused_mlp_block_bwd": {"xn @ W1": (xn, w1), "g @ W2^T": (g2, w2.t()),
-                                    "dhb @ W1^T": (dhb, w1.t()), "xn^T @ dhb": (xn.t(), dhb),
-                                    "hg^T @ g": (hg.t(), g2)}}
+        products = {"fused_qkv_attention": {"x @ W": (x2, w)},
+                    "fused_mlp_block": {"xn @ W1": (xn, w1), "h @ W2": (h, w2)}}
+        if x.dtype == torch.bfloat16:
+            (_, hg, dhb, _), _ = mlp_block_backward_stages(x, *mlp[:5], cot, ln_eps=1e-6)
+            hg, dhb = hg.reshape(h.shape), dhb.reshape(h.shape)
+            (_, dqkv), _ = qkv_attention_backward_stages(x, *qkv, cot, heads)
+            g2 = cot.reshape(x2.shape)
+            products.update({
+                "fused_qkv_attention_bwd": {"x @ W": (x2, w), "dqkv @ W^T": (dqkv, w.t()),
+                                            "x^T @ dqkv": (x2.t(), dqkv)},
+                "fused_mlp_block_bwd": {"xn @ W1": (xn, w1), "g @ W2^T": (g2, w2.t()),
+                                        "dhb @ W1^T": (dhb, w1.t()),
+                                        "xn^T @ dhb": (xn.t(), dhb), "hg^T @ g": (hg.t(), g2)}})
         for name, prods in products.items():
             ms = {p: cuda_ms(lambda a=a, b=b: torch.matmul(a, b)) for p, (a, b) in prods.items()}
-            rows[name]["yardstick_ms"] = sum(ms.values())
-            print(f"  cuBLAS bf16 yardstick (never called by the port), ViT-B/32 B=256, {name}: "
-                  + " + ".join(f"{p} {t:.4f}" for p, t in ms.items())
+            rows[name].setdefault("gemm_ms", {})[key] = sum(ms.values())
+            if key == "bfloat16 S=50":
+                rows[name]["yardstick_ms"] = sum(ms.values())
+            print(f"  cuBLAS {key} yardstick (never called by the port), ViT-B/32 B=256, "
+                  f"{name}: " + " + ".join(f"{p} {t:.4f}" for p, t in ms.items())
                   + f" = {sum(ms.values()):.4f} ms")
 
 
@@ -2204,6 +2238,7 @@ def eval_path_phase(torch, card: str, workdir: Path, label: str, flags: list,
 
     # the two metrics over warm repeats of task 0, timed as the protocol
     # times them (each call ended by a sync, the logits copied to the host)
+    medians = {}
     for impl in (None, "reference") if plain_timed else (None,):
         rec.impl = impl
         seconds = {"personalise": [], "predict": []}
@@ -2219,10 +2254,14 @@ def eval_path_phase(torch, card: str, workdir: Path, label: str, flags: list,
             seconds["predict"].append(t2 - t1)
         fps = [int(real.sum()) / t for t in seconds["predict"]]
         pers = [1e3 * t for t in seconds["personalise"]]
+        medians[impl] = statistics.median(fps)
         print(f"  task 0 repeated {repeats}x, warm, {'the plain versions' if impl else 'kernels'}:"
               f" query frames/s median {statistics.median(fps):.1f} ({min(fps):.1f}-"
               f"{max(fps):.1f}); time to personalise median {statistics.median(pers):.2f} ms "
               f"({min(pers):.2f}-{max(pers):.2f}) ({card})")
+    if plain_timed:
+        print(f"  query frames/s, kernels over the plain versions: "
+              f"{medians[None] / medians['reference']:.3f} ({card})")
     rec.impl = None
     print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
 
@@ -3576,7 +3615,7 @@ def main(argv=None) -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {'ran' if kbuild.build_seconds is not None else 'skipped: built'}) "
           f"-> {kbuild.library_path()}")
-    print_registers(kbuild.library_path().parent / "nvcc.log", WGMMA_KERNELS)
+    print_registers(kbuild.library_path().parent / "nvcc.log", REGISTER_KERNELS)
 
     # phase 3: the mainloop's layouts, then kernels vs plain versions
     mainloop_layout_phase(torch, card)
@@ -3690,6 +3729,8 @@ def main(argv=None) -> int:
                         "library_ms": rows[name].get("library_ms"),
                         "call_ms": rows[name].get("call_ms"),
                         "yardstick_ms": rows[name].get("yardstick_ms"),
+                        "gemm_ms": rows[name].get("gemm_ms"),
+                        "float32": rows[name].get("float32"),
                         "launches_by_path": {path: launches[name]
                                              for path, launches in paths.items()}})
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all, build included")

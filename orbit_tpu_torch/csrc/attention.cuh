@@ -10,15 +10,17 @@
 //   backward, for the cotangent g of out: dv = cast_T(p)^T g, dp = g v^T,
 //   ds = p * (dp - rowsum(dp * p)), dq = cast_T(ds * scale) k,
 //   dk = cast_T(ds * scale)^T q, all summed in f32.
-// The f32 stages (attend_f32 of kernel A and #1, attention_backward_block
-// of #4 and #2) run on the CUDA cores in 4 x 4 register tiles, one thread
-// block per (batch row, head). The bf16 stages run on the tensor cores
-// (mma.sync), one warp per 16-row strip: the forward's attend_strip
-// (kernel A's and #1's), and the backward's strips (#4's and #2's); #4's
-// backward off the wgmma route (bf16 at widths that are no multiple of
-// 128) takes the f32 block. The TPU kernels stack 8 batch rows
-// into one block-diagonal operand to fill the 128x128 MXU; here a strip
-// attends over its own sequence's 64 key slots, masked past S.
+// The f32 stages (attend_f32 of #1, attention_backward_block of #4 and
+// #2) run on the CUDA cores in 4 x 4 register tiles, one thread block per
+// (batch row, head); kernel A's f32 route attends over its packed row
+// tiles (attend_packed_f32: a warp 4 query rows, work sized to S). The
+// bf16 stages run on the tensor cores (mma.sync), one warp per 16-row
+// strip: the forward's attend_strip (kernel A's and #1's), and the
+// backward's strips (#4's and #2's); #4's backward off the wgmma route
+// (bf16 at widths that are no multiple of 128) takes the f32 block. The
+// TPU kernels stack 8 batch rows into one block-diagonal operand to fill
+// the 128x128 MXU; here a strip attends over its own sequence's 64 key
+// slots, masked past S.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -92,11 +94,10 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // ---------------------------------------------------------------------------
 // The f32 stages on the CUDA cores (true f32; TF32 stays off), one block of
-// kThreads per (batch row, head): kernel A's and #1's forward, #4's and
-// #2's backward. q, k, v and g are 64-row f32 tiles in shared memory, rows
-// kFLd floats apart (16 bytes aligned; the 16 rows a float4 read of a
-// column block touches fall on distinct banks), rows >= S finite (zero when
-// loaded, the bias when kernel A projects them). Every 64 x 64 product runs
+// kThreads per (batch row, head): #1's forward, #4's and #2's backward. q,
+// k, v and g are 64-row f32 tiles in shared memory, rows kFLd floats apart
+// (16 bytes aligned; the 16 rows a float4 read of a column block touches
+// fall on distinct banks), rows >= S finite (zero when loaded). Every 64 x 64 product runs
 // in 4 x 4 register tiles: thread (ty, tx) = (tid / 16, tid % 16) owns rows
 // ty + 16 r and either columns tx + 16 r (the scores) or 4 tx .. 4 tx + 3
 // (the outputs), so every shared-memory read is a float4 that 16 lanes
@@ -291,6 +292,141 @@ __device__ __forceinline__ void attend_f32(const float* qs, const float* ks, con
   __syncthreads();
   tile_pv(ps, vs, (S + 3) & ~3, c);
   store_rows(c, S, ob, D);
+}
+
+// The f32 forward over a row tile that packs whole sequences (kernel A's
+// f32 route): qkv holds the tile's rows ld floats apart (ld = 4 mod 32),
+// q at columns 0..63, k at 64..127, v at 128..191 of one head; rows < rows
+// are real, S a sequence. A warp takes kQRows query rows of one sequence at
+// a time, with work sized to S rather than to 64 key slots: lane j scores
+// keys j and (kTwo, S > 32) j + 32 for all the rows, a 64-term dot each in
+// ascending order (k rows on distinct banks, q broadcast); the softmax runs
+// over the warp's lanes in f32; p goes to the warp's scratch ps (kQRows x
+// 64 floats), and lane l sums p v for output columns 2 l and 2 l + 1 over
+// the S keys in order, 4 keys a step (p broadcast from ps, v rows read
+// once for all the rows). ob points at out[row 0 of the tile, h*hd], rows
+// D apart. Ends without a barrier.
+constexpr int kQRows = 4;  // query rows a warp takes at once
+constexpr int kPackedScratch = kQRows * kHeadDim;  // floats of a warp's p scratch
+
+template <bool kTwo>
+__device__ __forceinline__ void attend_packed_rows(const float* qkv, int ld, int first, int r0,
+                                                   int nq, int S, float* ps,
+                                                   float* __restrict__ ob, int D) {
+  const int lane = threadIdx.x % 32;
+  // a lane past S reads key 0 (a real row) and masks its score; a row past
+  // nq repeats the chunk's last and is not stored
+  const float* k0 = qkv + (first + (lane < S ? lane : 0)) * ld + kHeadDim;
+  const float* k1 = qkv + (first + (lane + 32 < S ? lane + 32 : 0)) * ld + kHeadDim;
+  const float* q[kQRows];
+#pragma unroll
+  for (int i = 0; i < kQRows; ++i) q[i] = qkv + (r0 + min(i, nq - 1)) * ld;
+  float s0[kQRows], s1[kQRows];
+#pragma unroll
+  for (int i = 0; i < kQRows; ++i) s0[i] = s1[i] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < kHeadDim; d += 4) {
+    const float4 a = *reinterpret_cast<const float4*>(k0 + d);
+    float4 c;
+    if (kTwo) c = *reinterpret_cast<const float4*>(k1 + d);
+#pragma unroll
+    for (int i = 0; i < kQRows; ++i) {
+      const float4 qv = *reinterpret_cast<const float4*>(q[i] + d);
+      s0[i] = fmaf(qv.x, a.x, s0[i]);
+      s0[i] = fmaf(qv.y, a.y, s0[i]);
+      s0[i] = fmaf(qv.z, a.z, s0[i]);
+      s0[i] = fmaf(qv.w, a.w, s0[i]);
+      if (kTwo) {
+        s1[i] = fmaf(qv.x, c.x, s1[i]);
+        s1[i] = fmaf(qv.y, c.y, s1[i]);
+        s1[i] = fmaf(qv.z, c.z, s1[i]);
+        s1[i] = fmaf(qv.w, c.w, s1[i]);
+      }
+    }
+  }
+  const float scale = 1.0f / sqrtf(static_cast<float>(kHeadDim));
+  float m[kQRows], sum[kQRows];
+#pragma unroll
+  for (int i = 0; i < kQRows; ++i) {
+    s0[i] = lane < S ? s0[i] * scale : -INFINITY;
+    s1[i] = kTwo && lane + 32 < S ? s1[i] * scale : -INFINITY;
+    m[i] = fmaxf(s0[i], s1[i]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int i = 0; i < kQRows; ++i) m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], o));
+#pragma unroll
+  for (int i = 0; i < kQRows; ++i) {
+    s0[i] = expf(s0[i] - m[i]);
+    s1[i] = kTwo ? expf(s1[i] - m[i]) : 0.f;
+    sum[i] = s0[i] + s1[i];
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int i = 0; i < kQRows; ++i) sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], o);
+#pragma unroll
+  for (int i = 0; i < kQRows; ++i) {  // p of keys lane and lane + 32
+    ps[i * kHeadDim + lane] = s0[i] / sum[i];
+    ps[i * kHeadDim + 32 + lane] = s1[i] / sum[i];
+  }
+  __syncwarp();
+  float o0[kQRows], o1[kQRows];
+#pragma unroll
+  for (int i = 0; i < kQRows; ++i) o0[i] = o1[i] = 0.f;
+  const float* v = qkv + first * ld + 2 * kHeadDim + 2 * lane;
+  int j = 0;
+  for (; j + 4 <= S; j += 4) {
+    float2 vv[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) vv[t] = *reinterpret_cast<const float2*>(v + (j + t) * ld);
+#pragma unroll
+    for (int i = 0; i < kQRows; ++i) {
+      const float4 p4 = *reinterpret_cast<const float4*>(ps + i * kHeadDim + j);
+      const float pt[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        o0[i] = fmaf(pt[t], vv[t].x, o0[i]);
+        o1[i] = fmaf(pt[t], vv[t].y, o1[i]);
+      }
+    }
+  }
+  for (; j < S; ++j) {
+    const float2 vv = *reinterpret_cast<const float2*>(v + j * ld);
+#pragma unroll
+    for (int i = 0; i < kQRows; ++i) {
+      o0[i] = fmaf(ps[i * kHeadDim + j], vv.x, o0[i]);
+      o1[i] = fmaf(ps[i * kHeadDim + j], vv.y, o1[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kQRows; ++i)
+    if (i < nq)
+      *reinterpret_cast<float2*>(ob + static_cast<size_t>(r0 + i) * D + 2 * lane) =
+          make_float2(o0[i], o1[i]);
+  __syncwarp();  // ps is rewritten by the warp's next rows
+}
+
+// scratch: kPackedScratch floats a warp of the block
+__device__ __forceinline__ void attend_packed_f32(const float* qkv, int ld, int rows, int S,
+                                                  float* scratch, float* __restrict__ ob, int D) {
+  const int warp = threadIdx.x / 32;
+  float* ps = scratch + warp * kPackedScratch;
+  // a sequence's query rows in `chunks` runs of S / chunks rows, rounded
+  // (at most kQRows each: 13 runs of 3 or 4 rows at S = 50)
+  const int chunks = (S + kQRows - 1) / kQRows;
+  const int units = rows / S * chunks;
+  for (int u = warp; u < units; u += blockDim.x / 32) {
+    const int first = (u / chunks) * S;              // the sequence's first row in the tile
+    const int c = u % chunks;
+    const int r0 = first + c * S / chunks;           // the run's first query row
+    const int nq = first + (c + 1) * S / chunks - r0;  // its rows
+    if (S > 32)
+      attend_packed_rows<true>(qkv, ld, first, r0, nq, S, ps, ob, D);
+    else
+      attend_packed_rows<false>(qkv, ld, first, r0, nq, S, ps, ob, D);
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -25,132 +25,98 @@
 // tensor cores (mma.sync) from the tile's q, k and v in shared memory.
 // Design at the kernel below.
 //
-// f32: one thread block per (batch row, head), FMA loops on the CUDA cores
-// (true f32, as the f32 path must be), bound by FMA issue and shared-memory
-// bandwidth. The block streams x[b] (S x D) and the head's 3*hd columns of
-// W over D in KT-wide tiles through shared memory and accumulates q, k and
-// v (S x 3*hd, f32 in registers, 4 x 12 per thread, read from shared memory
-// as float4s). q, k, v (rounded to T) then stay in shared memory for
-// attention.cuh's f32 stage attend_f32 (shared with #1): the scores, the
-// softmax and the AV product in 4 x 4 register tiles.
+// f32 (the CLI's default --compute_dtype): the same packed row tiles, on
+// sgemm.cuh's mainloop (true f32 FMA on the CUDA cores, TF32 off). A block
+// of 4 x BM threads projects its tile's BM rows against the head's 192
+// columns of W (4 x 12 sums a thread, x and W staged through a 3-stage
+// cp.async ring), so W's head slice is read once a row tile, not once a
+// sequence. The tile holds 128 rows (25 sequences at S = 5, 125 real) or
+// 160 (3 sequences at S = 50, 150 real; 128 rows hold 2, 100 real), the
+// caller's plan (kernels/plans.py::qkv_f32_rows: the one whose launch, one
+// block an SM, ends first). The epilogue adds b and leaves q | k | v of the
+// tile in shared memory (BM x 196 f32; they never reach device memory);
+// then attention.cuh's attend_packed_f32 gives each warp 4 query rows of
+// one sequence at a time, with work sized to S (a lane a key for the
+// scores, S steps of p v), not to 64 key slots. Bound by FMA issue in the
+// projection (2 * BM * 768 * 192 FLOPs a block at D 768; the tile's padded
+// rows, which the bound of real rows does not count, 6% of them at S = 50).
+// One block an SM: registers (102 a thread at 640 threads) and the
+// q | k | v tile (125 KB at 160 rows) hold it there.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <cmath>
 #include <cstdint>
-#include <type_traits>
 
 #include "attention.cuh"
 #include "common.cuh"
+#include "sgemm.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
-using orbit::round_to;
 using orbit::to_float;
 using orbit::attn::pack_bf16;
 using orbit::attn::kHeadDim;
 using orbit::attn::kMaxTokens;
-using orbit::attn::kFLd;
-using orbit::attn::kFTile;
 using orbit::attn::kSLd;  // bf16 row stride of q, k, v: 144 bytes
-using orbit::attn::kThreads;  // 16 x 16 thread grid in the projection
 
-constexpr int kTileK = 32;            // D tile streamed per step
-constexpr int kCols = 3 * kHeadDim;   // q | k | v columns of one head
-constexpr int kXLd = kTileK + 4;      // float4-aligned rows
+// ---- f32 on the CUDA cores (sgemm.cuh): the projection, then the packed
+// attention stage ----
+constexpr int kF32Cols = 3 * kHeadDim;        // 192: [q | k | v] of one head
+constexpr int kQkvLd = kF32Cols + 4;          // 196 = 4 (mod 32): k rows on distinct banks
 
-constexpr int kQkvFloats = 3 * kFTile;
-constexpr int kStageFloats = kMaxTokens * kXLd + kTileK * kCols;
-constexpr int kUnionFloats = kStageFloats > kFTile ? kStageFloats : kFTile;
-constexpr size_t kSmemBytes = sizeof(float) * (kQkvFloats + kUnionFloats);
+// A tile of BM rows: BM * 4 threads, a 4 x 12 sum tile each (16 or 20
+// warps, one block an SM; registers cap a thread at 102 at BM = 160)
+template <int BM>
+struct F32Plan {
+  static constexpr int kThreads = 4 * BM;
+  using Tile = orbit::sg::Tile<BM, kF32Cols, kThreads>;
+  // q | k | v of the tile, then the attention's p scratch of every warp
+  static constexpr size_t kQkvBytes =
+      sizeof(float) * (BM * kQkvLd + kThreads / 32 * orbit::attn::kPackedScratch);
+  static constexpr size_t kSmemBytes =
+      Tile::kSmemBytes > kQkvBytes ? Tile::kSmemBytes : kQkvBytes;
+};
 
-constexpr int kRowsPerThread = kMaxTokens / 16;  // 4
-constexpr int kColsPerThread = kCols / 16;       // 12: 4 of each of q, k, v
+// One block per (head, row tile); the tile packs nseq whole sequences.
+template <int BM>
+__global__ void __launch_bounds__(F32Plan<BM>::kThreads, 1)
+fused_qkv_attention_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                               const float* __restrict__ bias, float* __restrict__ out, int B,
+                               int S, int D, int nseq) {
+  constexpr int NT = F32Plan<BM>::kThreads;
+  extern __shared__ __align__(16) float f32_smem[];
+  const int h = blockIdx.x;
+  const int seq0 = blockIdx.y * nseq;            // first sequence of the tile
+  const int rows = min(nseq, B - seq0) * S;      // its real rows
+  const int row0 = seq0 * S;                     // its first row of x
+  const int cols[3] = {h * kHeadDim, D + h * kHeadDim, 2 * D + h * kHeadDim};
+  orbit::sg::Acc<BM, kF32Cols, NT> acc;
+  orbit::sg::mainloop<BM, kF32Cols, NT>(x, D, row0, row0 + rows, w, 3 * D, cols,
+                                        D / orbit::sg::kBK, f32_smem, acc);
+  __syncthreads();  // every stage consumed: q, k, v reuse them
+  // qkv = f32 GEMM + b: the TPU kernel's first rounding point (the identity in f32)
+  orbit::sg::for_each_acc<BM, kF32Cols, NT>(acc, [&](int r, int c, float4 v) {
+    const float4 bv = *reinterpret_cast<const float4*>(
+        bias + (c / kHeadDim) * D + h * kHeadDim + c % kHeadDim);
+    *reinterpret_cast<float4*>(f32_smem + r * kQkvLd + c) =
+        make_float4(v.x + bv.x, v.y + bv.y, v.z + bv.z, v.w + bv.w);
+  });
+  __syncthreads();
+  orbit::attn::attend_packed_f32(f32_smem, kQkvLd, rows, S, f32_smem + BM * kQkvLd,
+                                 out + static_cast<size_t>(row0) * D + h * kHeadDim, D);
+}
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-fused_qkv_attention_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                           const T* __restrict__ bias, T* __restrict__ out,
-                           int S, int D, int H) {
-  extern __shared__ float smem[];
-  float* qs = smem;                        // [kMaxTokens][kFLd]
-  float* ks = qs + kFTile;
-  float* vs = ks + kFTile;
-  float* stage = vs + kFTile;
-  float* xs = stage;                       // [kMaxTokens][kXLd]   (projection)
-  float* ws = stage + kMaxTokens * kXLd;   // [kTileK][kCols]     (projection)
-  float* ps = stage;                       // [kMaxTokens][kFLd]    (attention: p)
-
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int d3 = 3 * D;
-  const T* xb = x + static_cast<size_t>(b) * S * D;
-
-  // ---- projection: rows ty*4+i; columns part*64 + tx*4 + v of [q | k | v] ----
-  float acc[kRowsPerThread][kColsPerThread];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < D; k0 += kTileK) {
-    for (int e = tid; e < kMaxTokens * kTileK; e += kThreads) {
-      const int r = e / kTileK, c = e % kTileK;
-      xs[r * kXLd + c] = r < S ? to_float(xb[static_cast<size_t>(r) * D + k0 + c]) : 0.f;
-    }
-    for (int e = tid; e < kTileK * kCols; e += kThreads) {
-      const int r = e / kCols, lc = e % kCols;
-      const int part = lc / kHeadDim, c = lc % kHeadDim;
-      ws[r * kCols + lc] =
-          to_float(w[static_cast<size_t>(k0 + r) * d3 + part * D + h * kHeadDim + c]);
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int kk = 0; kk < kTileK; kk += 4) {
-      float a[kRowsPerThread][4];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) {
-        const float4 v = *reinterpret_cast<const float4*>(
-            xs + (ty * kRowsPerThread + i) * kXLd + kk);
-        a[i][0] = v.x; a[i][1] = v.y; a[i][2] = v.z; a[i][3] = v.w;
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float bv[kColsPerThread];
-#pragma unroll
-        for (int part = 0; part < 3; ++part) {
-          const float4 v = *reinterpret_cast<const float4*>(
-              ws + (kk + q) * kCols + part * kHeadDim + tx * 4);
-          bv[part * 4 + 0] = v.x; bv[part * 4 + 1] = v.y;
-          bv[part * 4 + 2] = v.z; bv[part * 4 + 3] = v.w;
-        }
-#pragma unroll
-        for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-          for (int j = 0; j < kColsPerThread; ++j) acc[i][j] = fmaf(a[i][q], bv[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // qkv = cast_T(f32 GEMM + b): the TPU kernel's first rounding point
-#pragma unroll
-  for (int j = 0; j < kColsPerThread; ++j) {
-    const int part = j / 4, c = tx * 4 + j % 4;
-    const float bj = to_float(bias[part * D + h * kHeadDim + c]);
-    float* dst = part == 0 ? qs : (part == 1 ? ks : vs);
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const int r = ty * kRowsPerThread + i;
-      dst[r * kFLd + c] = round_to<T>(acc[i][j] + bj);
-    }
-  }
-  __syncthreads();  // the staging tiles are dead from here: p reuses them
-  orbit::attn::attend_f32(qs, ks, vs, ps, out + static_cast<size_t>(b) * S * D + h * kHeadDim,
-                          S, D);
+template <int BM>
+int launch_f32(const float* x, const float* w, const float* bias, float* out, int B, int S,
+               int D, int H, int nseq, cudaStream_t stream) {
+  constexpr size_t bytes = F32Plan<BM>::kSmemBytes;
+  static bool configured = false;  // one flag per instantiation
+  if (const int e =
+          orbit::sg::configure(fused_qkv_attention_f32_kernel<BM>, bytes, &configured))
+    return e;
+  fused_qkv_attention_f32_kernel<BM><<<dim3(H, (B + nseq - 1) / nseq), F32Plan<BM>::kThreads,
+                                       bytes, stream>>>(x, w, bias, out, B, S, D, nseq);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -225,48 +191,44 @@ fused_qkv_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
   }
 }
 
-// nseq: whole sequences per row tile of the bf16 route (the caller's plan,
-// floor(128 / S) in orbit_tpu_torch/ops/tiny_attention.py::sequence_tiles)
-template <typename T>
-int launch(const void* x, const void* w, const void* bias, void* out, int B, int S, int D,
-           int H, int nseq, void* stream) {
-  if (B < 1 || S < 1 || S > kMaxTokens || H < 1 || D != H * kHeadDim)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    CUtensorMap map_x, map_w;
-    if (!orbit::wg::make_tmap_2d(&map_x, x, B * S, D, D, orbit::wg::kBM) ||
-        !orbit::wg::make_tmap_2d(&map_w, w, D, 3 * D, 3 * D, orbit::wg::kBK))
-      return static_cast<int>(cudaErrorInvalidValue);
-    static bool configured = false;  // one flag per instantiation
-    if (const int e =
-            orbit::set_smem(fused_qkv_attention_wgmma_kernel, kWgSmemBytes, &configured))
-      return e;
-    if (nseq < 1 || nseq * S > orbit::wg::kBM) return static_cast<int>(cudaErrorInvalidValue);
-    fused_qkv_attention_wgmma_kernel<<<dim3(H, (B + nseq - 1) / nseq), orbit::wg::kThreads,
-                                       kWgSmemBytes, s>>>(
-        map_x, map_w, static_cast<const T*>(bias), static_cast<T*>(out), B, S, D, nseq);
-  } else {
-    static bool configured = false;
-    if (const int e = orbit::set_smem(fused_qkv_attention_kernel<T>, kSmemBytes, &configured))
-      return e;
-    fused_qkv_attention_kernel<T><<<B * H, kThreads, kSmemBytes, s>>>(
-        static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(bias),
-        static_cast<T*>(out), S, D, H);
-  }
-  return static_cast<int>(cudaGetLastError());
+// nseq: whole sequences per row tile, at most `rows` rows (the caller's
+// plan: bf16 floor(128 / S), orbit_tpu_torch/ops/tiny_attention.py::
+// sequence_tiles; f32 floor(128 or 160 / S), kernels/plans.py::qkv_f32_rows)
+int bad_shape(int B, int S, int D, int H, int nseq, int rows) {
+  return B < 1 || S < 1 || S > kMaxTokens || H < 1 || D != H * kHeadDim || nseq < 1 ||
+         nseq * S > rows;
 }
 
 }  // namespace
 
 extern "C" int orbit_fused_qkv_attention_f32(const void* x, const void* w, const void* bias,
-                                             void* out, int B, int S, int D, int H,
+                                             void* out, int B, int S, int D, int H, int nseq,
                                              void* stream) {
-  return launch<float>(x, w, bias, out, B, S, D, H, 0, stream);
+  if (bad_shape(B, S, D, H, nseq, 160)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto xf = static_cast<const float*>(x), wf = static_cast<const float*>(w),
+             bf = static_cast<const float*>(bias);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (nseq * S <= 128)  // the smaller tile that holds the plan's sequences
+    return launch_f32<128>(xf, wf, bf, static_cast<float*>(out), B, S, D, H, nseq, s);
+  return launch_f32<160>(xf, wf, bf, static_cast<float*>(out), B, S, D, H, nseq, s);
 }
 
 extern "C" int orbit_fused_qkv_attention_bf16(const void* x, const void* w, const void* bias,
                                               void* out, int B, int S, int D, int H, int nseq,
                                               void* stream) {
-  return launch<__nv_bfloat16>(x, w, bias, out, B, S, D, H, nseq, stream);
+  using bf16 = __nv_bfloat16;
+  if (bad_shape(B, S, D, H, nseq, orbit::wg::kBM))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_x, map_w;
+  if (!orbit::wg::make_tmap_2d(&map_x, x, B * S, D, D, orbit::wg::kBM) ||
+      !orbit::wg::make_tmap_2d(&map_w, w, D, 3 * D, 3 * D, orbit::wg::kBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool configured = false;
+  if (const int e =
+          orbit::set_smem(fused_qkv_attention_wgmma_kernel, kWgSmemBytes, &configured))
+    return e;
+  fused_qkv_attention_wgmma_kernel<<<dim3(H, (B + nseq - 1) / nseq), orbit::wg::kThreads,
+                                     kWgSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      map_x, map_w, static_cast<const bf16*>(bias), static_cast<bf16*>(out), B, S, D, nseq);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -24,18 +24,24 @@
 // device memory once as bf16 (78.6 MB at B = 256, about 0.047 ms of the
 // 3.35 TB/s each way), which is cheaper than re-streaming the weights.
 //
-// f32, and bf16 at other widths: the FMA kernel on the CUDA cores (true
-// f32; the numeric policy keeps TF32 off), bound by FMA issue and the
-// shared-memory reads that feed it; at D 768 a thread holds 4 x 24
-// accumulators (252 registers), so one block fills an SM and 400 blocks
-// make 4 waves on 132 SMs, the last nearly empty. Blocks of 8 warps; each
+// f32, D and hidden multiples of 128 (the ViTs at the CLI's default
+// --compute_dtype): the bf16 route's three launches, the products on
+// sgemm.cuh's f32 mainloop (described at launch_f32_tiled below). Bound by
+// FMA issue (121 GFLOP a ViT-B/32 layer at B = 256, S = 50: 1.80 ms at the
+// 67 TFLOP/s f32 peak); h goes to device memory once in f32.
+//
+// The FMA kernel (fused_mlp_block_kernel), only for the shapes that no
+// tiled route takes (D or hidden not a multiple of 128, as the card tests'
+// D = 64, in either dtype): on the CUDA cores (true f32), bound by FMA
+// issue and the shared-memory reads that feed it. Blocks of 8 warps; each
 // warp owns 4 rows from the LayerNorm to the store. The warp normalises its
 // rows into shared memory, then walks the hidden dimension in chunks of
 // kChunk columns: the chunk's activations h_c = gelu(xn @ W1[:, c] + b1[c])
 // (2 columns per lane) go to shared memory only, and y_acc += h_c @ W2[c, :]
 // accumulates in registers (4 rows x D/32 columns per lane). W1 and W2
 // stream through double-buffered shared-memory stages (cp.async) that the
-// block's 8 warps share, and h never reaches device memory. D is a
+// block's 8 warps share, and h never reaches device memory; every block
+// re-streams all of W1 and W2, which the tiled routes avoid. D is a
 // template parameter so the accumulator tile lives in registers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,6 +50,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "sgemm.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -273,33 +280,60 @@ constexpr int kTileN = 128;  // tile columns of fc1 and fc2
 constexpr int kStages = 3;   // ring stages a block: two blocks an SM
 using MlpRing = orbit::wg::Ring<kTileN, kStages>;
 
-template <int D>
+// 16 bytes of T as floats, and back (8 bf16 or 4 f32 values)
+template <typename T>
+struct Vec16 {
+  static constexpr int kN = 16 / sizeof(T);
+  __device__ __forceinline__ static void unpack(const uint4& raw, float (&f)[kN]) {
+    if constexpr (std::is_same<T, float>::value) {
+      f[0] = __uint_as_float(raw.x); f[1] = __uint_as_float(raw.y);
+      f[2] = __uint_as_float(raw.z); f[3] = __uint_as_float(raw.w);
+    } else {
+      const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int q = 0; q < kN / 2; ++q) {
+        const float2 v = __bfloat1622float2(p[q]);
+        f[2 * q] = v.x;
+        f[2 * q + 1] = v.y;
+      }
+    }
+  }
+  __device__ __forceinline__ static uint4 pack(const float (&f)[kN]) {
+    uint4 raw;
+    if constexpr (std::is_same<T, float>::value) {
+      raw = make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                       __float_as_uint(f[3]));
+    } else {
+      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int q = 0; q < kN / 2; ++q) p[q] = __floats2bfloat162_rn(f[2 * q], f[2 * q + 1]);
+    }
+    return raw;
+  }
+};
+
+// LayerNorm, one warp a row: f32 two-pass statistics, xn rounded to T
+template <typename T, int D>
 __global__ void __launch_bounds__(32 * kLnWarps)
-fused_mlp_block_layernorm_kernel(const __nv_bfloat16* __restrict__ x,
-                                 const float* __restrict__ ln_g,
-                                 const float* __restrict__ ln_b,
-                                 __nv_bfloat16* __restrict__ xn, int rows, float eps) {
-  constexpr int kVecs = D / 8;                  // 16-byte vectors of a row
+fused_mlp_block_layernorm_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
+                                 const float* __restrict__ ln_b, T* __restrict__ xn, int rows,
+                                 float eps) {
+  using V = Vec16<T>;
+  constexpr int kVecs = D / V::kN;              // 16-byte vectors of a row
   constexpr int kPerLane = (kVecs + 31) / 32;
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * kLnWarps + threadIdx.x / 32;
   if (row >= rows) return;
   const uint4* xr = reinterpret_cast<const uint4*>(x + static_cast<size_t>(row) * D);
-  float v[kPerLane][8];
+  float v[kPerLane][V::kN];
   float s = 0.f;
 #pragma unroll
   for (int i = 0; i < kPerLane; ++i) {
     const int c = lane + 32 * i;
     if (c < kVecs) {
-      const uint4 raw = xr[c];
-      const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      V::unpack(xr[c], v[i]);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float2 f = __bfloat1622float2(p[q]);
-        v[i][2 * q] = f.x;
-        v[i][2 * q + 1] = f.y;
-        s += f.x + f.y;
-      }
+      for (int q = 0; q < V::kN / 2; ++q) s += v[i][2 * q] + v[i][2 * q + 1];
     }
   }
   const float mean = orbit::warp_sum(s) / D;
@@ -308,7 +342,7 @@ fused_mlp_block_layernorm_kernel(const __nv_bfloat16* __restrict__ x,
   for (int i = 0; i < kPerLane; ++i)
     if (lane + 32 * i < kVecs)
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
+      for (int e = 0; e < V::kN; ++e) {
         const float c = v[i][e] - mean;
         var += c * c;
       }
@@ -318,16 +352,13 @@ fused_mlp_block_layernorm_kernel(const __nv_bfloat16* __restrict__ x,
   for (int i = 0; i < kPerLane; ++i) {
     const int c = lane + 32 * i;
     if (c < kVecs) {
-      uint4 raw;
-      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&raw);
+      float o[V::kN];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int k = 8 * c + 2 * q;
-        p[q] = __floats2bfloat162_rn((v[i][2 * q] - mean) * rstd * ln_g[k] + ln_b[k],
-                                     (v[i][2 * q + 1] - mean) * rstd * ln_g[k + 1] +
-                                         ln_b[k + 1]);
+      for (int e = 0; e < V::kN; ++e) {
+        const int k = V::kN * c + e;
+        o[e] = (v[i][e] - mean) * rstd * ln_g[k] + ln_b[k];
       }
-      out[c] = raw;
+      out[c] = V::pack(o);
     }
   }
 }
@@ -397,8 +428,8 @@ int launch_wgmma(const void* x, const void* ln_g, const void* ln_b, const void* 
   if (const int e =
           orbit::set_smem(fused_mlp_block_gemm_kernel<ResidualStore>, bytes, &configured2))
     return e;
-  fused_mlp_block_layernorm_kernel<D><<<(rows + kLnWarps - 1) / kLnWarps, 32 * kLnWarps, 0,
-                                        stream>>>(
+  fused_mlp_block_layernorm_kernel<bf16, D><<<(rows + kLnWarps - 1) / kLnWarps,
+                                              32 * kLnWarps, 0, stream>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(ln_g),
       static_cast<const float*>(ln_b), static_cast<bf16*>(xn), rows, eps);
   if (const cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
@@ -417,18 +448,129 @@ int launch_wgmma(const void* x, const void* ln_g, const void* ln_b, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// The routes: bf16 with D and hidden multiples of 128
-// takes the wgmma route (xn and h are its workspaces); every other shape
-// and f32 take the FMA kernel.
+// ---------------------------------------------------------------------------
+// f32 (the CLI's default --compute_dtype), for D and hidden multiples of
+// 128: the same three launches, the products on sgemm.cuh's mainloop (true
+// f32 FMA on the CUDA cores) in 128-column tiles of bm rows (the caller's
+// plan, kernels/plans.py::sgemm_row_tile: 128, or 32 where 128-row tiles
+// would leave SMs without a block, as fc2 at S = 5; launch_sgemm).
+//   1. the LayerNorm kernel in f32, xn into a (rows, D) f32 workspace;
+//   2. fc1: h = gelu_erf(xn @ W1 + b1) into a (rows, hidden) f32 workspace;
+//   3. fc2: y = h @ W2 + b2 + x.
+// Each weight tile is read once a row tile, from L2; h goes to device
+// memory once (157 MB at ViT-B/32, B = 256, S = 50: about 0.09 ms each way
+// at 3.35 TB/s), against the 7.5 GB of L2 reads a launch that the FMA
+// kernel's on-chip h cost it.
+// ---------------------------------------------------------------------------
+constexpr int kSgTileN = 128;  // tile columns of fc1 and fc2
+
+// fc1's epilogue: h = gelu_erf(f32 sum + b1)
+struct GeluStoreF32 {
+  const float* b1;
+  float* h;
+  int ld;
+  __device__ __forceinline__ void operator()(int r, int c, float4 v) const {
+    const float4 b = *reinterpret_cast<const float4*>(b1 + c);
+    float p[4] = {v.x + b.x, v.y + b.y, v.z + b.z, v.w + b.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) p[e] = 0.5f * p[e] * (1.0f + erff(p[e] * 0.70710678118654752f));
+    *reinterpret_cast<float4*>(h + static_cast<size_t>(r) * ld + c) =
+        make_float4(p[0], p[1], p[2], p[3]);
+  }
+};
+
+// fc2's epilogue: y = f32 sum + b2 + x
+struct ResidualStoreF32 {
+  const float* b2;
+  const float* x;
+  float* out;
+  int ld;
+  __device__ __forceinline__ void operator()(int r, int c, float4 v) const {
+    const size_t o = static_cast<size_t>(r) * ld + c;
+    const float4 b = *reinterpret_cast<const float4*>(b2 + c);
+    const float4 xv = *reinterpret_cast<const float4*>(x + o);
+    *reinterpret_cast<float4*>(out + o) =
+        make_float4(v.x + b.x + xv.x, v.y + b.y + xv.y, v.z + b.z + xv.z, v.w + b.w + xv.w);
+  }
+};
+
+// One BM x 128 tile of fc1 or fc2: a (rows, K) row-major against b's
+// columns n0 .. n0 + 127, then the epilogue on every row below rows.
+template <int BM, int NT, int kPerSm, class Epi>
+__global__ void __launch_bounds__(NT, kPerSm)
+fused_mlp_block_sgemm_kernel(const float* __restrict__ a, const float* __restrict__ b, int k,
+                             int ldb, Epi epi, int rows) {
+  extern __shared__ __align__(16) float sg_smem[];
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * kSgTileN;
+  const int cols[2] = {n0, n0 + 64};
+  orbit::sg::Acc<BM, kSgTileN, NT> acc;
+  orbit::sg::mainloop<BM, kSgTileN, NT>(a, k, m0, rows, b, ldb, cols, k / orbit::sg::kBK,
+                                        sg_smem, acc);
+  orbit::sg::for_each_acc<BM, kSgTileN, NT>(acc, [&](int r, int c, float4 v) {
+    if (m0 + r < rows) epi(m0 + r, n0 + c, v);
+  });
+}
+
+template <int BM, int NT, int kPerSm, class Epi>
+int launch_sgemm_tile(const float* a, const float* b, int k, int n, Epi epi, int rows,
+                      cudaStream_t stream) {
+  constexpr size_t bytes = orbit::sg::Tile<BM, kSgTileN, NT>::kSmemBytes;
+  static bool configured = false;  // one flag per instantiation
+  if (const int e = orbit::sg::configure(fused_mlp_block_sgemm_kernel<BM, NT, kPerSm, Epi>,
+                                         bytes, &configured))
+    return e;
+  fused_mlp_block_sgemm_kernel<BM, NT, kPerSm, Epi>
+      <<<dim3(n / kSgTileN, (rows + BM - 1) / BM), NT, bytes, stream>>>(a, b, k, n, epi, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One product on the tile height the caller planned: 128 rows, 256 threads
+// (8 x 8 sums a thread), two blocks an SM; or 32 rows, 128 threads (4 x 8),
+// three an SM
+template <class Epi>
+int launch_sgemm(const float* a, const float* b, int k, int n, Epi epi, int rows, int bm,
+                 cudaStream_t stream) {
+  if (bm == 128) return launch_sgemm_tile<128, 256, 2>(a, b, k, n, epi, rows, stream);
+  if (bm == 32) return launch_sgemm_tile<32, 128, 3>(a, b, k, n, epi, rows, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// bm1, bm2: the row tiles of fc1 and fc2
+template <int D>
+int launch_f32_tiled(const float* x, const float* ln_g, const float* ln_b, const float* w1,
+                     const float* b1, const float* w2, const float* b2, float* out, float* xn,
+                     float* h, int rows, int hidden, float eps, int bm1, int bm2,
+                     cudaStream_t stream) {
+  fused_mlp_block_layernorm_kernel<float, D>
+      <<<(rows + kLnWarps - 1) / kLnWarps, 32 * kLnWarps, 0, stream>>>(x, ln_g, ln_b, xn, rows,
+                                                                      eps);
+  if (const cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  if (const int e = launch_sgemm(xn, w1, D, hidden, GeluStoreF32{b1, h, hidden}, rows, bm1,
+                                 stream))
+    return e;
+  return launch_sgemm(h, w2, hidden, D, ResidualStoreF32{b2, x, out, D}, rows, bm2, stream);
+}
+
+// The routes: D and hidden multiples of 128 take the tiled routes, bf16
+// the wgmma one and f32 the sgemm one (xn and h are their workspaces);
+// every other shape takes the FMA kernel.
 template <typename T, int D>
 int launch_d(const void* x, const void* ln_g, const void* ln_b, const void* w1,
              const void* b1, const void* w2, const void* b2, void* out, void* xn, void* h,
-             int rows, int hidden, float eps, cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value && D % 128 == 0) {
+             int rows, int hidden, float eps, int bm1, int bm2, cudaStream_t stream) {
+  if constexpr (D % 128 == 0) {
     if (hidden % kTileN == 0) {
       if (!xn || !h) return static_cast<int>(cudaErrorInvalidValue);
-      return launch_wgmma<D>(x, ln_g, ln_b, w1, b1, w2, b2, out, xn, h, rows, hidden, eps,
-                             stream);
+      if constexpr (std::is_same<T, __nv_bfloat16>::value)
+        return launch_wgmma<D>(x, ln_g, ln_b, w1, b1, w2, b2, out, xn, h, rows, hidden, eps,
+                               stream);
+      else
+        return launch_f32_tiled<D>(
+            static_cast<const float*>(x), static_cast<const float*>(ln_g),
+            static_cast<const float*>(ln_b), static_cast<const float*>(w1),
+            static_cast<const float*>(b1), static_cast<const float*>(w2),
+            static_cast<const float*>(b2), static_cast<float*>(out), static_cast<float*>(xn),
+            static_cast<float*>(h), rows, hidden, eps, bm1, bm2, stream);
     }
   }
   constexpr size_t bytes = FmaLayout<T, D>::kBytes;
@@ -446,14 +588,15 @@ int launch_d(const void* x, const void* ln_g, const void* ln_b, const void* w1,
 template <typename T>
 int launch(const void* x, const void* ln_g, const void* ln_b, const void* w1, const void* b1,
            const void* w2, const void* b2, void* out, void* xn, void* h, int rows, int D,
-           int hidden, float eps, void* stream) {
+           int hidden, float eps, int bm1, int bm2, void* stream) {
   if (rows < 1 || hidden < kChunk || hidden % kChunk)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {  // the widths of the supported ViTs and of the tests
-#define ORBIT_MLP_CASE(W)                                                                 \
-  case W:                                                                                 \
-    return launch_d<T, W>(x, ln_g, ln_b, w1, b1, w2, b2, out, xn, h, rows, hidden, eps, s);
+#define ORBIT_MLP_CASE(W)                                                                  \
+  case W:                                                                                  \
+    return launch_d<T, W>(x, ln_g, ln_b, w1, b1, w2, b2, out, xn, h, rows, hidden, eps, bm1, \
+                          bm2, s);
     ORBIT_MLP_CASE(64)
     ORBIT_MLP_CASE(128)
     ORBIT_MLP_CASE(384)
@@ -465,22 +608,24 @@ int launch(const void* x, const void* ln_g, const void* ln_b, const void* w1, co
 
 }  // namespace
 
+// xn (rows, D) and h (rows, hidden) are the tiled routes' workspaces, in
+// T (may be null where the FMA kernel takes the shape: D not a multiple of
+// 128, or hidden not a multiple of 128). bm1 and bm2 (f32 only): the row
+// tiles of fc1 and fc2 (orbit_tpu_torch/kernels/plans.py::sgemm_row_tile).
 extern "C" int orbit_fused_mlp_block_f32(const void* x, const void* ln_g, const void* ln_b,
                                          const void* w1, const void* b1, const void* w2,
-                                         const void* b2, void* out, int rows, int D,
-                                         int hidden, float eps, void* stream) {
-  return launch<float>(x, ln_g, ln_b, w1, b1, w2, b2, out, nullptr, nullptr, rows, D, hidden,
-                       eps, stream);
+                                         const void* b2, void* out, void* xn, void* h,
+                                         int rows, int D, int hidden, float eps, int bm1,
+                                         int bm2, void* stream) {
+  return launch<float>(x, ln_g, ln_b, w1, b1, w2, b2, out, xn, h, rows, D, hidden, eps, bm1,
+                       bm2, stream);
 }
 
-// xn (rows, D) and h (rows, hidden) are the wgmma route's bf16 workspaces
-// (may be null where the FMA kernel takes the shape: D not a multiple of
-// 128, or hidden not a multiple of 128)
 extern "C" int orbit_fused_mlp_block_bf16(const void* x, const void* ln_g, const void* ln_b,
                                           const void* w1, const void* b1, const void* w2,
                                           const void* b2, void* out, void* xn, void* h,
                                           int rows, int D, int hidden, float eps,
                                           void* stream) {
   return launch<__nv_bfloat16>(x, ln_g, ln_b, w1, b1, w2, b2, out, xn, h, rows, D, hidden,
-                               eps, stream);
+                               eps, 0, 0, stream);
 }

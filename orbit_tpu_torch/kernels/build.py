@@ -16,6 +16,7 @@ refused (too much shared memory, a bad grid) never passes silently.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -42,13 +43,12 @@ COLSUM_ROWS = 256
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # x, w, b, out, B, S, D, H, stream
-    "orbit_fused_qkv_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # the same with the wgmma route's sequences per row tile before the stream
+    # x, w, b, out, B, S, D, H, sequences per row tile, stream
+    "orbit_fused_qkv_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "orbit_fused_qkv_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, ln_g, ln_b, w1, b1, w2, b2, out, rows, D, hidden, eps, stream
-    "orbit_fused_mlp_block_f32": [_P] * 8 + [_I, _I, _I, _F, _P],
-    # the same with the wgmma route's workspaces xn and h after out
+    # x, ln_g, ln_b, w1, b1, w2, b2, out, the tiled routes' workspaces xn and
+    # h, rows, D, hidden, eps, (f32: the row tiles of fc1 and fc2,) stream
+    "orbit_fused_mlp_block_f32": [_P] * 10 + [_I, _I, _I, _F, _I, _I, _P],
     "orbit_fused_mlp_block_bf16": [_P] * 10 + [_I, _I, _I, _F, _P],
     # x, w, b, g, qkv, dqkv, partial, dx, dw, db, B, S, D, H, stream
     "orbit_fused_qkv_attention_bwd_f32": [_P] * 10 + [_I] * 4 + [_P],
@@ -178,6 +178,28 @@ def aligned(t, nbytes: int = 32):
     that starts elsewhere."""
     t = t.contiguous()
     return t if t.data_ptr() % nbytes == 0 else t.clone()
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (read once a device)."""
+    return _sms(device.index)
+
+
+def run_on(device, fn, *args) -> int:
+    """``fn(*args, stream)``: a C entry on ``device``'s current stream, with
+    the device current for the launch (made so for the call where it is not
+    already: the context switch costs more than a kernel's host side)."""
+    import torch
+    if device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
 
 
 def check(code: int, kernel: str) -> None:

@@ -6,7 +6,9 @@ routes); the geometry, staging and schedule of the fused depthwise tail
 (#8, ``csrc/depthwise.cu``); the tiles and partial sums of the Mahalanobis
 logits (#7, ``csrc/mahalanobis.cu``); the tiles, walks, rings and strips
 of the bf16 attention on a raw qkv and its backward (#1 and #2,
-``csrc/tiny_attention.cu``).
+``csrc/tiny_attention.cu``); the row tiles and blocks of the f32 routes of
+kernels A and B on the f32 mainloop (``csrc/sgemm.cuh``), with the
+mainloop's order of sums and kernel A's f32 route emulated.
 
 The backward kernels #4 and #6 never add into a shared sum: every partial
 sum has one writer (a block), covers a fixed run of rows, and a second pass
@@ -566,3 +568,94 @@ def attn_bwd_emulate(qkv: torch.Tensor, g: torch.Tensor, num_heads: int, sms: in
                     dqkv[out_rows, c0:c0 + ATTN_HEAD] = grad[[r0 + j for j in live]].to(dt)
                     writes[out_rows, part, hh] += 1
     return dqkv, writes
+
+
+# ---- the f32 routes of kernels A and B on the f32 mainloop (csrc/sgemm.cuh) ----
+SG_TILE_N = 128         # kSgTileN: columns of a tile of B's fc1 and fc2
+
+
+def sgemm_row_tile(m: int, n: int, sms: int) -> int:
+    """Rows of the tiles of B's f32 product (m, n) (fc1: n = hidden, fc2:
+    n = D): 128, or 32 where 128-row tiles would number fewer than the
+    card's SMs (fc2 at S = 5: 60 tiles of 128 rows on 132 SMs, 240 of 32)."""
+    return 128 if -(-m // 128) * (n // SG_TILE_N) >= sms else 32
+
+
+def sgemm_grid(m: int, n: int, bm: int):
+    """The blocks of one of B's f32 products in launch order, as (m0, n0,
+    rows): block (x, y) owns rows y bm .. and columns x 128 .., its rows
+    below m written."""
+    return [(y * bm, x * SG_TILE_N, min(bm, m - y * bm))
+            for y in range(-(-m // bm)) for x in range(n // SG_TILE_N)]
+
+
+QKV_F32_TILES = (128, 160)  # kernel A's f32 tiles (launch_f32<128> and <160>)
+
+
+def qkv_f32_rows(b: int, s: int, h: int, sms: int) -> int:
+    """Rows of kernel A's f32 tile, of which a tile packs floor(rows / S)
+    whole sequences: the tile of QKV_F32_TILES whose launch (H x tiles
+    blocks, one an SM) ends first, by waves x rows, the smaller on a tie:
+    160 at S 50, B 256 (3 sequences, 150 of 160 rows real, 8 waves on 132
+    SMs, against 12 waves of 100 of 128 rows), 128 at S 5 (25 sequences, 132
+    blocks)."""
+    def cost(rows):
+        blocks = h * -(-b // (rows // s))
+        return -(-blocks // sms) * rows
+    return min(QKV_F32_TILES, key=cost)
+
+
+def qkv_f32_blocks(b: int, s: int, h: int, sms: int = 132):
+    """The blocks of kernel A's f32 route in launch order, as (head, first
+    row, rows): grid (H, ceil(B / nseq)), nseq = floor(qkv_f32_rows / S),
+    block (x, y) head x of the tile of sequences y nseq .. min(B, (y + 1)
+    nseq) - 1."""
+    nseq = qkv_f32_rows(b, s, h, sms) // s
+    return [(x, y * nseq * s, min(nseq, b - y * nseq) * s)
+            for y in range(-(-b // nseq)) for x in range(h)]
+
+
+def sgemm_emulate(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The mainloop's sums on the CPU in f32: every output adds its K
+    products in ascending k, whatever the depth of a stage, each product
+    rounded before its sum (the kernel fuses the two in one fmaf)."""
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    for k in range(a.shape[1]):
+        acc = acc + a[:, k:k + 1].float() * b[k:k + 1].float()
+    return acc
+
+
+def qkv_f32_emulate(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, num_heads: int,
+                    sms: int = 132):
+    """Kernel A's f32 route on the CPU: per block of
+    :func:`qkv_f32_blocks`, the tile's real rows of x against the head's
+    q | k | v columns of W by :func:`sgemm_emulate`, +
+    b; then ``attend_packed_f32`` for each real query row: the scores a
+    64-term dot in ascending order, scaled after it, the softmax over the
+    sequence's S keys, p v summed over the keys in order. Returns (out,
+    writes): out (B, S, D), NaN where no block wrote, and the writes of each
+    (row, head); ``sms`` the card's SMs, which choose the tile."""
+    n, s, d = x.shape
+    flat = x.reshape(n * s, d).float()
+    out = torch.full((n * s, d), float("nan"))
+    writes = torch.zeros(n * s, num_heads, dtype=torch.int64)
+    for hh, row0, rows in qkv_f32_blocks(n, s, num_heads, sms):
+        assert rows % s == 0 and 0 < rows <= max(QKV_F32_TILES)  # whole sequences in a tile
+        tile = flat[row0:row0 + rows]
+        cols = [p * d + hh * ATTN_HEAD + c for p in range(3) for c in range(ATTN_HEAD)]
+        qkv = sgemm_emulate(tile, w.float()[:, cols]) + bias.float()[cols]
+        q, k, v = qkv[:, :ATTN_HEAD], qkv[:, ATTN_HEAD:2 * ATTN_HEAD], qkv[:, 2 * ATTN_HEAD:]
+        for first in range(0, rows, s):  # a sequence's query rows at once
+            seq = slice(first, first + s)
+            sc = torch.zeros(s, s)
+            for dd in range(ATTN_HEAD):
+                sc = sc + q[seq, dd:dd + 1] * k[seq, dd][None, :]
+            sc = sc * (1.0 / ATTN_HEAD ** 0.5)
+            e = torch.exp(sc - sc.amax(dim=1, keepdim=True))
+            p = e / e.sum(dim=1, keepdim=True)
+            o = torch.zeros(s, ATTN_HEAD)
+            for j in range(s):
+                o = o + p[:, j:j + 1] * v[first + j][None, :]
+            out[row0 + first:row0 + first + s, hh * ATTN_HEAD:(hh + 1) * ATTN_HEAD] = o
+            writes[row0 + first:row0 + first + s, hh] += 1
+    return out.reshape(n, s, d), writes

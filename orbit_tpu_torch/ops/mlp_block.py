@@ -180,6 +180,17 @@ def wgmma_route(dtype, d: int, hidden: int) -> bool:
     return dtype == torch.bfloat16 and d % WGMMA_TILE_N == 0 and hidden % WGMMA_TILE_N == 0
 
 
+def f32_tiled_route(dtype, d: int, hidden: int) -> bool:
+    """Whether the forward kernel takes its f32 tiled route (three
+    launches: LayerNorm into an f32 xn workspace, fc1 into an f32 h
+    workspace, fc2, the products on ``csrc/sgemm.cuh``'s mainloop in tiles
+    of ``plans.sgemm_row_tile`` rows) rather than the FMA kernel: f32, with
+    D and hidden multiples of ``plans.SG_TILE_N`` (``launch_d`` in
+    ``csrc/mlp_block.cu``)."""
+    return (dtype == torch.float32 and d % plans.SG_TILE_N == 0
+            and hidden % plans.SG_TILE_N == 0)
+
+
 def _launch(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps: float):
     d = x.shape[-1]
     hidden = w1.shape[1]
@@ -196,18 +207,22 @@ def _launch(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps: float):
     out = torch.empty_like(x)
     args = [x.data_ptr(), f32[0].data_ptr(), f32[1].data_ptr(), w1c.data_ptr(),
             f32[2].data_ptr(), w2c.data_ptr(), f32[3].data_ptr(), out.data_ptr()]
+    if wgmma_route(x.dtype, d, hidden) or f32_tiled_route(x.dtype, d, hidden):
+        # the tiled routes' workspaces xn (rows, D) and h (rows, hidden), in
+        # one allocation freed when the call returns
+        work = torch.empty((rows * (d + hidden),), device=x.device, dtype=x.dtype)
+        args += [work.data_ptr(), work.data_ptr() + rows * d * work.element_size()]
+    else:
+        args += [None, None]
+    args += [rows, d, hidden, float(ln_eps)]
     lib = kbuild.library()
     if x.dtype == torch.bfloat16:
         fn = lib.orbit_fused_mlp_block_bf16
-        # the wgmma route's workspaces, freed when the call returns
-        work = ([torch.empty((rows, n), device=x.device, dtype=x.dtype) for n in (d, hidden)]
-                if wgmma_route(x.dtype, d, hidden) else [])
-        args += [t.data_ptr() for t in work] or [None, None]
     else:
         fn = lib.orbit_fused_mlp_block_f32
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = fn(*args, rows, d, hidden, float(ln_eps), stream)
+        sms = kbuild.sm_count(x.device)  # the row tiles of fc1 and fc2
+        args += [plans.sgemm_row_tile(rows, hidden, sms), plans.sgemm_row_tile(rows, d, sms)]
+    code = kbuild.run_on(x.device, fn, *args)
     kbuild.check(code, "fused_mlp_block")
     kbuild.LAUNCHES["fused_mlp_block"] += 1
     return out

@@ -216,16 +216,14 @@ def _launch(x, kernel, bias, num_heads: int) -> torch.Tensor:
     w = kbuild.aligned(kernel.to(x.dtype))
     b = kbuild.aligned(bias.to(x.dtype))
     out = torch.empty_like(x)
-    args = [x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), n, s, d, num_heads]
     lib = kbuild.library()
     if x.dtype == torch.bfloat16:
-        fn = lib.orbit_fused_qkv_attention_bf16
-        args.append(sequence_tiles(n, s)[0])
+        fn, nseq = lib.orbit_fused_qkv_attention_bf16, sequence_tiles(n, s)[0]
     else:
         fn = lib.orbit_fused_qkv_attention_f32
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = fn(*args, stream)
+        nseq = plans.qkv_f32_rows(n, s, num_heads, kbuild.sm_count(x.device)) // s
+    code = kbuild.run_on(x.device, fn, x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                         out.data_ptr(), n, s, d, num_heads, nseq)
     kbuild.check(code, "fused_qkv_attention")
     kbuild.LAUNCHES["fused_qkv_attention"] += 1
     return out
@@ -268,10 +266,6 @@ def _check_cotangent(g, shape) -> None:
         raise ValueError(f"cotangent shape {tuple(g.shape)} != {shape}")
 
 
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _launch_attention(qkv, num_heads: int) -> torch.Tensor:
     """#1 on a CUDA tensor; bf16 with the plan :func:`plans.attn_fwd_plan`."""
     n, s, d3 = qkv.shape
@@ -281,7 +275,7 @@ def _launch_attention(qkv, num_heads: int) -> torch.Tensor:
     lib = kbuild.library()
     args = [qkv.data_ptr(), out.data_ptr(), n, s, d3 // 3, num_heads]
     if qkv.dtype == torch.bfloat16:
-        plan = plans.attn_fwd_plan(n, s, num_heads, _sm_count(qkv.device))
+        plan = plans.attn_fwd_plan(n, s, num_heads, kbuild.sm_count(qkv.device))
         fn = lib.orbit_tiny_attention_bf16
         args += [plan.nseq, plan.rows, plan.blocks]
     else:
@@ -306,7 +300,7 @@ def _launch_attention_backward(qkv, g, num_heads: int) -> torch.Tensor:
     args = [qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), n, s, d3 // 3, num_heads]
     if qkv.dtype == torch.bfloat16:
         fn = lib.orbit_tiny_attention_bwd_bf16
-        args.append(plans.attn_bwd_plan(n, s, num_heads, _sm_count(qkv.device)).blocks)
+        args.append(plans.attn_bwd_plan(n, s, num_heads, kbuild.sm_count(qkv.device)).blocks)
     else:
         fn = lib.orbit_tiny_attention_bwd_f32
     with torch.cuda.device(qkv.device):
