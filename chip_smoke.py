@@ -8,15 +8,17 @@ Phases, each of which passes or raises:
 1. card: the ``nvidia-smi`` name and power limit;
 2. build: the CUDA kernels from ``orbit_tpu_torch/csrc``, timed, and the
    registers and spills of the kernels of the bf16 wgmma routes of A, B,
-   #4 and #6 and of the f32 routes of A and B (from nvcc's ``-Xptxas -v``
-   log);
+   #4 and #6 and of the f32 routes of A, B, #4 and #6 (from nvcc's
+   ``-Xptxas -v`` log);
 3. kernels: the wgmma mainloop alone in every operand layout and tile
    width against ``torch.matmul`` on a ragged shape; kernel A (fused qkv
    attention), kernel B (fused MLP block) and
    their backward kernels against their plain PyTorch versions on the card,
    at the ViT-B/32 and ViT-S/32 shapes (B = 256 and a ragged 13, S = 50)
    and at ViT-B/32's 84 px shape (S = 5, with a ragged f32 B = 26: one
-   row tile of 25 sequences and one of 1), in f32 and bf16; the fused
+   row tile of 25 sequences and one of 1), in f32 and bf16, and #4 and #6
+   in f32 at the FineTuner's B = 64 (the weight gradients' K = 3,200
+   rows), #4's and #6's f32 lines at B = 13 timed too; the fused
    depthwise tail (#8) at EfficientNet-B0's 8 and EfficientNetV2-S's 4
    stride-1 tail shapes at 224 px and B0's 8 at 84 px (B = 256 and 13,
    f32 and bf16, act1 on and off), beside cuDNN's grouped convolution alone,
@@ -32,13 +34,15 @@ Phases, each of which passes or raises:
    with
    CUDA events at B = 256 and at #7's path shape, beside its bound, and
    repeated to show that a second call gives the same bits, and its share
-   of the bound and its time over the plain version's printed; A, B, #4
-   and #6 also back to back (A's and B's f32 routes at S = 50 and 5 too),
-   beside cuBLAS bf16 on their products alone (x @ W; xn @ W1 and h @ W2;
-   #4's three and #6's five) and cuBLAS f32 with TF32 off on A's and B's
-   at S = 50 and 5, a yardstick the port never calls, and #4 and #6 with
-   a ``torch.profiler`` breakdown of one
-   call by launch; and A, B, #4 and #6 timed at the ViT
+   of the bound and its time over the plain version's printed (#4's and
+   #6's f32 lines at B = 64 and 13 too); A, B, #4 and #6 also back to back (A's
+   and B's f32 routes at S = 50 and 5 too), beside cuBLAS bf16 on their
+   products alone (x @ W; xn @ W1 and h @ W2; #4's three and #6's five) and
+   cuBLAS f32 with TF32 off on the same products at S = 50 and 5 (and
+   #4's and #6's at B = 64 and 13), a yardstick the port never calls, and #4 and
+   #6 with a ``torch.profiler`` breakdown of one call by launch (bf16 at S
+   = 50, f32 at S = 50 and 5 and at B = 64); and A, B, #4 and #6 timed at
+   the ViT
    train path's other batch sizes (44, the ragged target batch, and 16,
    the LITE grad subset);
 4. ViT path: the CLU-VE test protocol of the port's single-step learner on
@@ -211,22 +215,40 @@ Phases, each of which passes or raises:
    with ``--learn_extractor`` at batch 256 (train-mode ConvBnAct and
    EdgeResidual blocks on masked batch statistics), phase 10's checks, the
    f32 argmax printed, and its peak memory. Phase 13's
-   seconds and the whole script's are printed.
+   seconds are printed.
+14. the CLI's default ``--compute_dtype float32`` on the two ViT paths that
+   run the f32 routes of #4 and #6, at full width through the learners
+   and the CLI's flags: (a) ViT-B/32 ProtoNets+LITE in ``--mode
+   train_test`` (phase 5's run and checks in f32: the gradients under a
+   fixed upstream gradient, kernels against plain, held to 2e-4 of each
+   tensor's largest value as the f32 FiLM paths are held; A, B, #4 and #6
+   launched as the path's forwards and backwards say), at 224 px and at
+   ``--frame_size 84`` (S = 5), with warm repeats of one task step through
+   the kernels and through the plain versions, their ratio, the peak
+   memory and a traced step's idle share; (b) the ViT-B/32-CLIP
+   FineTuner+FiLM in f32 (phase 8's run and launch checks; its first-step
+   gradients per tensor within 2e-4 and task 0's argmax on 99% of the
+   frames held, as phase 9 holds the B0 FineTuner's), its time to
+   personalise through the kernels and through the plain versions, and
+   the idle share of a traced short personalise. Phase 14's seconds and
+   the whole script's are printed.
 
 The line before the last is ``{"kernels": [...]}`` (launches: kernels A and
 B from phase 4, #4 and #6 from phase 5, #7 and #8 from phase 6; #1 and #2
-are on no path and report their launches over phases 4 to 13 together,
+are on no path and report their launches over phases 4 to 14 together,
 which must be 0; their checks and times are phase 3's; ``launches_by_path``
-gives every kernel's launches on each path, phases 8 to 13's paths
+gives every kernel's launches on each path, phases 8 to 14's paths
 included, ``gemm_ms`` the cuBLAS yardsticks of A, B, #4 and #6 by dtype
-and S, ``float32`` the f32 routes' times at S = 50 and 5); the
+and S, ``float32`` the f32 routes' times at S = 50 and 5, and #4's and
+#6's at B = 64 and 13); the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
 
     python3 chip_smoke.py --breakdown-only DIR
 
 prints only kernel A's device time and the per-launch breakdown of #4
-(ViT-B/32, B = 256, bf16 and f32) and of #6 (bf16) with the
+and #6 (ViT-B/32, B = 256: bf16 and f32 at S = 50, f32 at S = 5; f32 at B =
+13 and 44) with the
 ``orbit_tpu_torch`` package found in DIR (a checkout of another commit, to
 set the kernels of two commits side by side in one call).
 
@@ -293,7 +315,8 @@ PATH_REL_TOL = 2.0 ** -4
 # On an H100, over --seed 1991, 7 and 12345: the kernels read 1.5e-5 to
 # 2.4e-5, #8's plain version with its f32 stages in f64 (the witness)
 # 1.4e-5 to 2.3e-5, and a wrong border in #8 2.1e-3 to 2.7e-3: held to
-# 2e-4, and the wrong border must read above it.
+# 2e-4, and the wrong border must read above it. Phase 14 holds the f32 ViT
+# paths (the LITE step's and the FineTuner's gradients) to the same limit.
 F32_PATH_GRAD_TOL = 2e-4
 # In bf16, against the whole gradient's norm: a one-ulp flip of an
 # activation travels back through 16 blocks into per-channel sums that
@@ -358,15 +381,17 @@ HBM_BYTES_PER_S = 3.35e12
 
 
 # the kernels of the bf16 wgmma routes of A, B, #4 and #6 (csrc/wgmma.cuh),
-# of the f32 routes of A and B (csrc/sgemm.cuh), the mainloop's layout
-# check and the bf16 kernels of #1 and #2, whose registers and spills phase
-# 2 prints from nvcc's -Xptxas -v output
+# of the f32 routes of A, B, #4 and #6 (csrc/sgemm.cuh, csrc/sgemm_grads.cuh),
+# the mainloop's layout check and the bf16 kernels of #1 and #2, whose
+# registers and spills phase 2 prints from nvcc's -Xptxas -v output
 REGISTER_KERNELS = ("fused_qkv_attention_wgmma_kernel", "fused_mlp_block_layernorm_kernel",
                     "fused_mlp_block_gemm_kernel", "fused_qkv_attention_f32_kernel",
                     "fused_mlp_block_sgemm_kernel", "qkv_recompute_kernel",
                     "attention_bwd_mma_kernel", "mlp_bwd_hidden_kernel", "grads_kernel",
                     "layer_norm_kernel", "layer_norm_backward_kernel", "wgmma_check_kernel",
-                    "tiny_attention_tile_kernel", "tiny_attention_bwd_mma_kernel")
+                    "tiny_attention_tile_kernel", "tiny_attention_bwd_mma_kernel",
+                    "qkv_attention_bwd_f32_kernel", "mlp_bwd_hidden_f32_kernel",
+                    "sgemm_grads_kernel")
 
 
 def print_registers(log: Path, names) -> None:
@@ -634,8 +659,12 @@ def kernel_phase(torch, card: str) -> dict:
         for dtype_name in ("float32", "bfloat16"):
             dt = getattr(torch, dtype_name)
             rtol, atol = KERNEL_TOL[dtype_name]
-            # B 26 at S 5 (f32): one row tile of 25 sequences and one of 1
-            batches = (256, 13, 26) if s == 5 and dtype_name == "float32" else (256, 13)
+            # B 26 at S 5 (f32): one row tile of 25 sequences and one of 1;
+            # B 64 at S 50 (f32, the backward kernels): the FineTuner's
+            # context batch, whose weight gradients walk K = 3,200 rows
+            batches = (256, 13)
+            if dtype_name == "float32" and vit == "vit_b_32":
+                batches += (26,) if s == 5 else (64,)
             for b in batches:
                 x = randn(b, s, d).to(dt)
                 cot = randn(b, s, d).to(dt)
@@ -656,6 +685,8 @@ def kernel_phase(torch, card: str) -> dict:
                 for name, run in runs.items():
                     if b == 26 and name.endswith("_bwd"):
                         continue  # the ragged tiles are the forward routes'
+                    if b == 64 and not name.endswith("_bwd"):
+                        continue  # the FineTuner's shape is the backward routes'
                     with torch.inference_mode():
                         ours, ref = run(None), run("reference")
                     torch.cuda.synchronize()
@@ -666,7 +697,10 @@ def kernel_phase(torch, card: str) -> dict:
                     else:
                         max_abs, max_rel = compare(ours, ref, rtol, atol, where)
                         line = f"  {where}: max abs {max_abs:.3e}, max rel {max_rel:.3e}"
-                    if b in (256, 26):
+                    # the f32 backward routes are timed at the small batches too
+                    time_it = b == 256 or (b in (64, 13) and dtype_name == "float32"
+                                           and name.endswith("_bwd"))
+                    if time_it or b == 26:
                         with torch.inference_mode():
                             again = run(None)
                             torch.cuda.synchronize()
@@ -675,7 +709,7 @@ def kernel_phase(torch, card: str) -> dict:
                             if not all(torch.equal(u, v) for u, v in zip(outs, agains)):
                                 raise AssertionError(f"{where}: a second call gave other bits")
                         line += "; same bits on a repeat"
-                    if b == 256:
+                    if time_it:
                         with torch.inference_mode():
                             ms = cuda_ms(lambda: run(None))
                             plain_ms = cuda_ms(lambda: run("reference"))
@@ -685,7 +719,10 @@ def kernel_phase(torch, card: str) -> dict:
                                  f"it), kernel over plain {ms / plain_ms:.3f}")
                         timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                      bound_by=bound_by)
-                        if vit == "vit_b_32" and (dtype_name, s) != ("bfloat16", 5):
+                        if b != 256:
+                            if vit == "vit_b_32":
+                                rows[name].setdefault("float32", {})[f"S={s} B={b}"] = timed
+                        elif vit == "vit_b_32" and (dtype_name, s) != ("bfloat16", 5):
                             # the calls enqueued back to back, as a forward's
                             # layers enqueue them (f32: the forward routes)
                             if dtype_name == "bfloat16" or not name.endswith("_bwd"):
@@ -699,25 +736,34 @@ def kernel_phase(torch, card: str) -> dict:
                                 rows[name].setdefault("float32", {})[f"S={s}"] = timed
                     rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], max_abs)
                     print(line)
-                if vit == "vit_b_32" and b == 256 and (dtype_name, s) != ("bfloat16", 5):
-                    gemm_yardstick(torch, rows, x, qkv, mlp, cot, f"{dtype_name} S={s}")
-                if vit == "vit_b_32" and dtype_name == "bfloat16" and b == 256 and s == 50:
+                if (b == 256 and (dtype_name, s) != ("bfloat16", 5)
+                        and (vit == "vit_b_32" or dtype_name == "float32")) or (
+                        b in (64, 13) and dtype_name == "float32"):
+                    gemm_yardstick(torch, rows, x, qkv, mlp, cot,
+                                   f"{dtype_name} S={s}" + (f" B={b}" if b != 256 else "")
+                                   + ("" if vit == "vit_b_32" else " ViT-S/32"),
+                                   f"{'ViT-B/32' if vit == 'vit_b_32' else 'ViT-S/32'} B={b}")
+                if vit == "vit_b_32" and b in (256, 64) and (dtype_name, s) != ("bfloat16", 5):
                     for name in ("fused_qkv_attention_bwd", "fused_mlp_block_bwd"):
-                        launch_breakdown(torch, lambda: runs[name](None), name, card)
+                        launch_breakdown(torch, lambda: runs[name](None), name, card,
+                                         dtype="bf16" if dtype_name == "bfloat16" else "f32",
+                                         shape=f"ViT-B/32 B={b}" + (f" S={s}" if s != 50 else ""))
     train_shapes_phase(torch, randn)
     return rows
 
 
-def gemm_yardstick(torch, rows: dict, x, qkv, mlp, cot, key: str) -> None:
+def gemm_yardstick(torch, rows: dict, x, qkv, mlp, cot, key: str,
+                   shape: str = "ViT-B/32 B=256") -> None:
     """cuBLAS on the ViT kernels' products alone, at their inputs, in x's
     dtype (f32 with TF32 off, as configure_matmul_precision sets it): A's
     x @ W; B's xn @ W1 and h @ W2 (xn and h from the staged plain
-    version); in bf16 also #4's x @ W, cast(dqkv) @ W^T and x^T @
-    cast(dqkv), #6's xn @ W1, g @ W2^T, cast(dhpre) @ W1^T, xn^T @
-    cast(dhpre) and hg^T @ g (the operands from the staged plain backwards;
-    a transpose is cuBLAS's operand flag, no copy). A yardstick of what a
-    library GEMM gives at these shapes, kept in each row's ``gemm_ms`` under
-    ``key``; the port never calls it."""
+    version); #4's x @ W, cast(dqkv) @ W^T and x^T @ cast(dqkv), #6's xn @
+    W1, g @ W2^T, cast(dhpre) @ W1^T, xn^T @ cast(dhpre) and hg^T @ g (the
+    operands from the staged plain backwards; a transpose is cuBLAS's
+    operand flag, no copy); at the f32 backward kernels' B = 64 and 13 (a
+    ``key`` naming B) only #4's and #6's. A yardstick of what a library GEMM gives
+    at these shapes, kept in each row's ``gemm_ms`` under ``key``; the
+    port never calls it."""
     from orbit_tpu_torch.ops.mlp_block import mlp_block_backward_stages, mlp_block_stages
     from orbit_tpu_torch.ops.tiny_attention import qkv_attention_backward_stages
     if x.dtype == torch.float32 and torch.backends.cuda.matmul.allow_tf32:
@@ -729,25 +775,25 @@ def gemm_yardstick(torch, rows: dict, x, qkv, mlp, cot, key: str) -> None:
         xn, h = xn.reshape(x2.shape), h.reshape(x2.shape[0], -1)
         w1, w2 = mlp[2].contiguous(), mlp[4].contiguous()
         w = qkv[0].contiguous()
-        products = {"fused_qkv_attention": {"x @ W": (x2, w)},
-                    "fused_mlp_block": {"xn @ W1": (xn, w1), "h @ W2": (h, w2)}}
-        if x.dtype == torch.bfloat16:
-            (_, hg, dhb, _), _ = mlp_block_backward_stages(x, *mlp[:5], cot, ln_eps=1e-6)
-            hg, dhb = hg.reshape(h.shape), dhb.reshape(h.shape)
-            (_, dqkv), _ = qkv_attention_backward_stages(x, *qkv, cot, heads)
-            g2 = cot.reshape(x2.shape)
-            products.update({
-                "fused_qkv_attention_bwd": {"x @ W": (x2, w), "dqkv @ W^T": (dqkv, w.t()),
-                                            "x^T @ dqkv": (x2.t(), dqkv)},
-                "fused_mlp_block_bwd": {"xn @ W1": (xn, w1), "g @ W2^T": (g2, w2.t()),
-                                        "dhb @ W1^T": (dhb, w1.t()),
-                                        "xn^T @ dhb": (xn.t(), dhb), "hg^T @ g": (hg.t(), g2)}})
+        products = {} if "B=" in key else {
+            "fused_qkv_attention": {"x @ W": (x2, w)},
+            "fused_mlp_block": {"xn @ W1": (xn, w1), "h @ W2": (h, w2)}}
+        (_, hg, dhb, _), _ = mlp_block_backward_stages(x, *mlp[:5], cot, ln_eps=1e-6)
+        hg, dhb = hg.reshape(h.shape), dhb.reshape(h.shape)
+        (_, dqkv), _ = qkv_attention_backward_stages(x, *qkv, cot, heads)
+        g2 = cot.reshape(x2.shape)
+        products.update({
+            "fused_qkv_attention_bwd": {"x @ W": (x2, w), "dqkv @ W^T": (dqkv, w.t()),
+                                        "x^T @ dqkv": (x2.t(), dqkv)},
+            "fused_mlp_block_bwd": {"xn @ W1": (xn, w1), "g @ W2^T": (g2, w2.t()),
+                                    "dhb @ W1^T": (dhb, w1.t()),
+                                    "xn^T @ dhb": (xn.t(), dhb), "hg^T @ g": (hg.t(), g2)}})
         for name, prods in products.items():
             ms = {p: cuda_ms(lambda a=a, b=b: torch.matmul(a, b)) for p, (a, b) in prods.items()}
             rows[name].setdefault("gemm_ms", {})[key] = sum(ms.values())
             if key == "bfloat16 S=50":
                 rows[name]["yardstick_ms"] = sum(ms.values())
-            print(f"  cuBLAS {key} yardstick (never called by the port), ViT-B/32 B=256, "
+            print(f"  cuBLAS {key} yardstick (never called by the port), {shape}, "
                   f"{name}: " + " + ".join(f"{p} {t:.4f}" for p, t in ms.items())
                   + f" = {sum(ms.values()):.4f} ms")
 
@@ -781,13 +827,13 @@ def launch_breakdown(torch, fn, label: str, card: str, calls: int = 5,
 
 
 def breakdown_only(torch, root: Path) -> None:
-    """``--breakdown-only``: kernel A's device time and phase 3's per-launch
-    breakdown of #4 and #6 with the ``orbit_tpu_torch`` package under
-    ``root``."""
+    """``--breakdown-only``: kernel A's device time and the per-launch
+    breakdown of #4 and #6 (bf16 and f32 at B 256, S 50; f32 at S 5, and at
+    B 13 and 44) with the ``orbit_tpu_torch`` package under ``root``."""
     sys.path.insert(0, str(root))
     import orbit_tpu_torch
     from orbit_tpu_torch.models.precision import configure_matmul_precision
-    from orbit_tpu_torch.ops import fused_mlp_block_backward
+    from orbit_tpu_torch.ops import fused_mlp_block_backward, fused_qkv_attention_backward
     configure_matmul_precision()
     card = card_line()
     dev = torch.device("cuda")
@@ -804,6 +850,23 @@ def breakdown_only(torch, root: Path) -> None:
     vit_attention_device_time(torch, card)
     launch_breakdown(torch, lambda: fused_mlp_block_backward(x, *mlp, cot, ln_eps=1e-6),
                      "fused_mlp_block_bwd", card)
+    # the f32 routes: #6 at S 50, both at S 5 (#4's f32 S 50 is above)
+    xf, cf, mf = x.float(), cot.float(), tuple(t.float() for t in mlp)
+    launch_breakdown(torch, lambda: fused_mlp_block_backward(xf, *mf, cf, ln_eps=1e-6),
+                     "fused_mlp_block_bwd", card, dtype="f32")
+    x5, c5 = randn(256, 5, d), randn(256, 5, d)
+    w = (randn(d, 3 * d, scale=d ** -0.5), randn(3 * d, scale=0.1))
+    launch_breakdown(torch, lambda: fused_qkv_attention_backward(x5, *w, c5, d // 64),
+                     "fused_qkv_attention_bwd", card, dtype="f32", shape="ViT-B/32 B=256 S=5")
+    launch_breakdown(torch, lambda: fused_mlp_block_backward(x5, *mf, c5, ln_eps=1e-6),
+                     "fused_mlp_block_bwd", card, dtype="f32", shape="ViT-B/32 B=256 S=5")
+    # and both at phase 3's ragged B 13 and the f32 train path's B 44
+    for b in (13, 44):
+        xb, cb = randn(b, 50, d), randn(b, 50, d)
+        launch_breakdown(torch, lambda: fused_qkv_attention_backward(xb, *w, cb, d // 64),
+                         "fused_qkv_attention_bwd", card, dtype="f32", shape=f"ViT-B/32 B={b}")
+        launch_breakdown(torch, lambda: fused_mlp_block_backward(xb, *mf, cb, ln_eps=1e-6),
+                         "fused_mlp_block_bwd", card, dtype="f32", shape=f"ViT-B/32 B={b}")
 
 
 def mainloop_layout_phase(torch, card: str) -> None:
@@ -1319,8 +1382,8 @@ def recorded_run(torch, learner):
 def train_path_phase(torch, card: str, workdir: Path, extractor: str = "vit_b_32",
                      frame_size: int = 224, target_shots: int = 60,
                      dtype: str = "bfloat16", lite: bool = True,
-                     argmax_held: bool = True) -> dict:
-    """Phases 5, 10 and 13 (b, e): the port's ProtoNets meta-training path
+                     argmax_held: bool = True, plain_repeats: int = 0) -> dict:
+    """Phases 5, 10, 13 (b, e) and 14 (a): the port's ProtoNets meta-training path
     with ``--learn_extractor`` (ViT-B/32 at 224 px, bf16, with
     ``--with_lite`` unless told otherwise) in ``--mode train_test``. Before
     the run, on the ViT, one task's gradients through the kernels against
@@ -1330,7 +1393,9 @@ def train_path_phase(torch, card: str, workdir: Path, extractor: str = "vit_b_32
     (:func:`card_vs_cpu_step`), with every BatchNorm calibrated after each
     weight draw as in phase 6. Then one warm step traced, and the run.
     ``argmax_held``: on an EfficientNet, whether the f32 test task's argmax
-    is held (:func:`effnet_train_checks`) or printed."""
+    is held (:func:`effnet_train_checks`) or printed. ``plain_repeats``:
+    after the run, that many warm repeats of the first task's step through
+    the kernels and then through the plain versions, and their ratio."""
     import numpy as np
 
     from orbit_tpu_torch.data.episodes import pad_episode
@@ -1387,7 +1452,8 @@ def train_path_phase(torch, card: str, workdir: Path, extractor: str = "vit_b_32
         torch.cuda.synchronize()
         print(f"  first {dtype} task step (cold): {time.perf_counter() - t0:.2f} s")
     else:
-        vit_step_kernels_vs_plain(torch, rec, args, episode, subsets, batch, card)
+        vit_step_kernels_vs_plain(torch, rec, args, episode, subsets, batch, card,
+                                  F32_PATH_GRAD_TOL if dtype == "float32" else PATH_REL_TOL)
     # one warm step under the profiler: device time by kernel group and the
     # device's idle share
     device_breakdown(torch, step, card)
@@ -1442,11 +1508,39 @@ def train_path_phase(torch, card: str, workdir: Path, extractor: str = "vit_b_32
           f"{[round(x, 6) for x in losses]}, extractor forwards {forwards}, "
           f"wall {wall:.2f} s")
     print_step_times(torch, learner.train_step_seconds, card)
+    if plain_repeats:
+        step_kernels_vs_plain_times(torch, rec, step, plain_repeats, card)
     return launches
 
 
+def step_kernels_vs_plain_times(torch, rec, step, repeats: int, card: str) -> None:
+    """``repeats`` warm calls of one task's step (its gradients, each call
+    ended by a device sync) through the kernels, then through the plain
+    versions: the median and range of each and the ratio of the medians."""
+    medians = {}
+    for impl in (None, "reference"):
+        rec.impl = impl
+        ms = []
+        for _ in range(repeats + 1):  # the first call of a route is not timed
+            rec.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        ms = ms[1:]
+        medians[impl] = statistics.median(ms)
+        print(f"  task 0's step repeated {repeats}x, warm, "
+              f"{'the plain versions' if impl else 'kernels'}: median {medians[impl]:.2f} ms "
+              f"({min(ms):.2f}-{max(ms):.2f}) ({card})")
+    rec.impl = None
+    rec.zero_grad(set_to_none=True)
+    print(f"  ms a task step, kernels over the plain versions: "
+          f"{medians[None] / medians['reference']:.3f} ({card})")
+
+
 def vit_step_kernels_vs_plain(torch, rec, args, episode, subsets, batch: int,
-                              card: str) -> None:
+                              card: str, limit: float = PATH_REL_TOL) -> None:
     """Phase 5: one task, the same injected subsets, through the kernels and
     through the plain versions. (a) The whole LITE step: its losses and its
     gradients' largest difference, per tensor against its largest value,
@@ -1457,7 +1551,9 @@ def vit_step_kernels_vs_plain(torch, rec, args, episode, subsets, batch: int,
     loss's softmax by tens of percent, whatever the kernels do. (b) The
     step's two differentiated forwards (its grad subset and its first
     target batch) under one fixed upstream gradient of the features, which
-    takes that sensitivity out: held to PATH_REL_TOL per tensor."""
+    takes that sensitivity out: held per tensor to ``limit`` (PATH_REL_TOL
+    in bf16, F32_PATH_GRAD_TOL in f32, where the two routes differ in
+    summation order only)."""
     from orbit_tpu_torch.learners import steps as steps_lib
 
     dev = episode["context_clips"].device
@@ -1481,13 +1577,14 @@ def vit_step_kernels_vs_plain(torch, rec, args, episode, subsets, batch: int,
     rec.zero_grad(set_to_none=True)
     step_worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
                      for a, b in zip(grads[None], grads["reference"]))
-    worst = compare_grads(fixed[None], fixed["reference"], PATH_REL_TOL,
+    worst = compare_grads(fixed[None], fixed["reference"], limit,
                           "gradients under a fixed upstream gradient, kernels vs plain")
-    print(f"train path (card: {card}): one task's LITE step loss {step_loss[None]:.6f} "
+    print(f"train path, {rec.dtype} (card: {card}): one task's LITE step loss {step_loss[None]:.6f} "
           f"with the kernels, {step_loss['reference']:.6f} plain; its gradients differ "
           f"by at most {step_worst:.3e} of a tensor's largest value")
     print(f"  under a fixed upstream gradient: {len(fixed[None])} gradient tensors agree "
-          f"within {PATH_REL_TOL} of their largest value, max abs {worst:.3e}")
+          f"within {limit} of their largest value (worst {worst_rel(fixed[None], fixed['reference']):.3e}), "
+          f"max abs {worst:.3e}")
 
 
 def vit_train_checks(launches: dict, forwards: int, batches, batch: int, num_lite: int,
@@ -1997,11 +2094,14 @@ def device_breakdown(torch, fn, card: str) -> float:
     from torch.profiler import ProfilerActivity, profile
 
     groups = (("#4 fused_qkv_attention_bwd", r"qkv_recompute|attention_bwd_mma|"
-                                              r"grads_kernel<__nv_bfloat16>"),
+                                              r"grads_kernel<__nv_bfloat16>|"
+                                              r"qkv_attention_bwd_f32|sgemm_grads_kernel<1>"),
               # the anonymous namespace keeps PyTorch's vectorized_layer_norm_kernel out
               ("#6 fused_mlp_block_bwd", r"mlp_bwd_hidden|grads_kernel<float>|"
+                                         r"sgemm_grads_kernel<2>|"
                                          r"namespace\)::layer_norm_(kernel|backward)"),
-              ("#4 and #6 second passes (vector gradients)", r"sum_partials"),
+              ("#4 and #6 second passes (vector gradients, f32 weight runs)",
+               r"sum_partials|sum_runs"),
               ("A fused_qkv_attention", r"fused_qkv_attention"),
               ("B fused_mlp_block", r"fused_mlp_block"),
               ("#8 fused_dw_act", r"fused_dw_\w*kernel"),
@@ -2273,9 +2373,10 @@ def eval_path_phase(torch, card: str, workdir: Path, label: str, flags: list,
     return launches
 
 
-def finetune_dw_breakdown(torch, card: str, rows: int, steps: int) -> None:
+def finetune_dw_breakdown(torch, card: str, rows: int, steps: int,
+                          dtype: str = "bfloat16") -> None:
     """#4 and #6 by launch at the FineTuner's context batch (``rows`` clips
-    of 50 tokens at ViT-B/32's width, bf16). Their grads launch forms the
+    of 50 tokens at ViT-B/32's width, in ``dtype``). Their grads launch forms the
     weight gradients beside dx (half of #4's products there, two thirds of
     #6's), which a FiLM step with the extractor frozen does not read; the
     bound of those dW products alone is printed beside."""
@@ -2286,30 +2387,33 @@ def finetune_dw_breakdown(torch, card: str, rows: int, steps: int) -> None:
 
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device=dev) * scale
-    x, cot = randn(rows, s, d).bfloat16(), randn(rows, s, d).bfloat16()
-    qkv = (randn(d, 3 * d, scale=d ** -0.5).bfloat16(), randn(3 * d, scale=0.02))
+    dt = getattr(torch, dtype)
+    x, cot = randn(rows, s, d).to(dt), randn(rows, s, d).to(dt)
+    qkv = (randn(d, 3 * d, scale=d ** -0.5).to(dt), randn(3 * d, scale=0.02))
     mlp = (1 + randn(d, scale=0.1), randn(d, scale=0.1),
-           randn(d, 4 * d, scale=d ** -0.5).bfloat16(), randn(4 * d, scale=0.02),
-           randn(4 * d, d, scale=(4 * d) ** -0.5).bfloat16())
-    shape = f"ViT-B/32 B={rows}"
+           randn(d, 4 * d, scale=d ** -0.5).to(dt), randn(4 * d, scale=0.02),
+           randn(4 * d, d, scale=(4 * d) ** -0.5).to(dt))
+    shape, short = f"ViT-B/32 B={rows}", "bf16" if dtype == "bfloat16" else "f32"
     launch_breakdown(torch, lambda: fused_qkv_attention_backward(x, *qkv, cot, DEPTH),
-                     "fused_qkv_attention_bwd", card, shape=shape)
+                     "fused_qkv_attention_bwd", card, shape=shape, dtype=short)
     launch_breakdown(torch, lambda: fused_mlp_block_backward(x, *mlp, cot, ln_eps=1e-5),
-                     "fused_mlp_block_bwd", card, shape=shape)
+                     "fused_mlp_block_bwd", card, shape=shape, dtype=short)
     dw_flops = 2 * rows * s * (3 * d * d + 2 * 4 * d * d)
     print(f"  the dW products of #4 and #6 a layer at B={rows}: {dw_flops / 1e9:.3f} GFLOP, "
-          f"bound {1e3 * dw_flops / PEAK_FLOPS['bfloat16']:.4f} ms; a FiLM personalise runs "
+          f"bound {1e3 * dw_flops / PEAK_FLOPS[dtype]:.4f} ms; a FiLM personalise runs "
           f"them {DEPTH} x {steps} times ({card})")
 
 
 def finetuner_phase(torch, card: str, workdir: Path, label: str, flags: list,
                     per_forward: dict, per_backward: dict | None = None,
                     calibrate: bool = False, repeats: int = FT_REPEATS, traced: bool = True,
-                    after_construct=None) -> dict:
-    """Phases 8 and 9: the port's FineTuner through the multi-step learner
-    (``--mode test --classifier linear``, ``flags`` naming the model, bf16,
-    batch 256, 224 px, the CLI's defaults: 50 Adam steps at lr 0.001) over
-    phase 4's two synthetic tasks, to ``results.json``.
+                    after_construct=None, dtype: str = "bfloat16",
+                    plain_timed: bool = False) -> dict:
+    """Phases 8, 9 and 14 (b): the port's FineTuner through the multi-step learner
+    (``--mode test --classifier linear``, ``flags`` naming the model, bf16
+    unless ``dtype`` says otherwise, batch 256, 224 px, the CLI's
+    defaults: 50 Adam steps at lr 0.001) over phase 4's two synthetic
+    tasks, to ``results.json``.
 
     Before the run, through the kernels and through their plain versions:
     one inner step's gradients of the task parameters (the head, and with
@@ -2318,7 +2422,8 @@ def finetuner_phase(torch, card: str, workdir: Path, label: str, flags: list,
     head sends the FiLM leaves none at the first step); and task 0's whole
     personalise and predict, whose argmax must agree on at least 99% of
     the real query frames. A ViT is held in bf16, its gradients per tensor
-    to PATH_REL_TOL as in phase 5. An EfficientNet (``calibrate``: its
+    to PATH_REL_TOL as in phase 5; in f32 (phase 14) per tensor to
+    F32_PATH_GRAD_TOL, its argmax held as phase 9 holds B0's. An EfficientNet (``calibrate``: its
     BatchNorm statistics set as in phase 6) is held to phase 7's limits:
     per tensor F32_PATH_GRAD_TOL and the argmax in f32, which must also see
     a wrong border planted in #8; BF16_PATH_GRAD_NORM_TOL of the norm in
@@ -2328,9 +2433,11 @@ def finetuner_phase(torch, card: str, workdir: Path, label: str, flags: list,
     and each of ``per_backward`` in every backward of every inner step, and
     no other kernel; every task's head (and FiLM leaves) must move, and the
     results must carry ``task_macs_to_personalise``. Then task 0 repeated
-    warm for the metrics, and a personalise of TRACE_STEPS inner steps
-    traced (``traced``); on a ViT, #4 and #6 by launch at the FineTuner's
-    batch. ``after_construct`` is given the learner before the checks."""
+    warm for the metrics (``plain_timed``: then through the plain versions
+    too, and the ratio of the times to personalise), and a personalise of
+    TRACE_STEPS inner steps traced (``traced``); on a ViT, #4 and #6 by
+    launch at the FineTuner's batch. ``after_construct`` is given the
+    learner before the checks."""
     import numpy as np
 
     from orbit_tpu_torch.data.episodes import pad_episode
@@ -2347,7 +2454,7 @@ def finetuner_phase(torch, card: str, workdir: Path, label: str, flags: list,
     started, marks = time.perf_counter(), []
     args = parse_args("multi-step-learner", [
         "--data_path", str(workdir / "data"), "--checkpoint_dir", str(workdir / "ckpt"),
-        "--mode", "test", *flags, "--classifier", "linear", "--compute_dtype", "bfloat16",
+        "--mode", "test", *flags, "--classifier", "linear", "--compute_dtype", dtype,
         "--batch_size", str(batch), "--frame_size", "224", "--num_test_tasks", "1",
         "--seed", str(SEED)])
     steps = args.personalize_num_grad_steps
@@ -2416,7 +2523,8 @@ def finetuner_phase(torch, card: str, workdir: Path, label: str, flags: list,
     # steps (PERF.md §6), so there the agreement is printed beside the
     # witness's; the planted fault (a wrong border in #8) must show in the
     # f32 gradients.
-    checks = ([("bfloat16", "tensor", PATH_REL_TOL, True)] if not calibrate else
+    checks = ([("float32", "tensor", F32_PATH_GRAD_TOL, True)] if dtype == "float32" else
+              [("bfloat16", "tensor", PATH_REL_TOL, True)] if not calibrate else
               [("float32", "tensor", F32_PATH_GRAD_TOL, True),
                ("bfloat16", "norm", BF16_PATH_GRAD_NORM_TOL, False)])
     wide = functools.partial(dw_variant, wide=True)
@@ -2517,7 +2625,7 @@ def finetuner_phase(torch, card: str, workdir: Path, label: str, flags: list,
                              f"{low / 1e9}-{high / 1e9} G")
     counts = ", ".join(f"{n} {launches[n]}" for n in KERNELS if launches[n])
     timings = learner.test_timings
-    print(f"{label} (card: {card}): 224px bf16, batch {batch}, {len(tasks)} tasks, {steps} "
+    print(f"{label} (card: {card}): 224px {dtype}, batch {batch}, {len(tasks)} tasks, {steps} "
           f"inner steps, {len(kept)} personalise calls, {forwards} extractor forwards, "
           f"{backwards} backwards, wall {wall:.2f} s; launches: {counts}")
     for line in read:
@@ -2530,21 +2638,31 @@ def finetuner_phase(torch, card: str, workdir: Path, label: str, flags: list,
           f"{1.0 / statistics.mean(timings['inference_per_frame']):.1f} ({card})")
 
     marks.append(("the run and its checks", time.perf_counter()))
-    seconds = {"personalise": [], "predict": []}
-    for _ in range(repeats):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tp = learner.personalise_fn(*ctx)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        learner.predict_fn(tp, query, ctx[3]).cpu()
-        seconds["personalise"].append(1e3 * (t1 - t0))
-        seconds["predict"].append(time.perf_counter() - t1)
-    fps = [int(real.sum()) / t for t in seconds["predict"]]
-    pers = seconds["personalise"]
-    print(f"  task 0 repeated {repeats}x, warm: time to personalise median "
-          f"{statistics.median(pers):.2f} ms ({min(pers):.2f}-{max(pers):.2f}); query frames/s "
-          f"median {statistics.median(fps):.1f} ({min(fps):.1f}-{max(fps):.1f}) ({card})")
+    medians = {}
+    for impl in (None, "reference") if plain_timed else (None,):
+        rec.impl = impl
+        seconds = {"personalise": [], "predict": []}
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tp = learner.personalise_fn(*ctx)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            learner.predict_fn(tp, query, ctx[3]).cpu()
+            seconds["personalise"].append(1e3 * (t1 - t0))
+            seconds["predict"].append(time.perf_counter() - t1)
+        fps = [int(real.sum()) / t for t in seconds["predict"]]
+        pers = seconds["personalise"]
+        medians[impl] = statistics.median(pers)
+        print(f"  task 0 repeated {repeats}x, warm, "
+              f"{'the plain versions' if impl else 'kernels'}: time to personalise median "
+              f"{statistics.median(pers):.2f} ms ({min(pers):.2f}-{max(pers):.2f}); query "
+              f"frames/s median {statistics.median(fps):.1f} ({min(fps):.1f}-{max(fps):.1f}) "
+              f"({card})")
+    rec.impl = None
+    if plain_timed:
+        print(f"  time to personalise, kernels over the plain versions: "
+              f"{medians[None] / medians['reference']:.3f} ({card})")
     if not traced:
         marks.append(("repeats", time.perf_counter()))
         print("  phase time: " + ", ".join(
@@ -2571,7 +2689,7 @@ def finetuner_phase(torch, card: str, workdir: Path, label: str, flags: list,
         print(f"  device busy {busy:.2f} ms of the untraced {statistics.median(untraced):.2f} "
               f"ms: idle share {100 * (1 - busy / statistics.median(untraced)):.1f}% ({card})")
     if "fused_mlp_block_bwd" in per_backward:
-        finetune_dw_breakdown(torch, card, ctx[0].shape[0], steps)
+        finetune_dw_breakdown(torch, card, ctx[0].shape[0], steps, dtype)
     marks.append(("repeats and traces", time.perf_counter()))
     print("  phase time: " + ", ".join(
         f"{label} {t - before:.1f} s"
@@ -3568,6 +3686,42 @@ def unrun_configs_phase(torch, card: str, workdir: Path) -> dict:
     return paths
 
 
+# ------------------------------------------------------------ phase 14 ----
+
+# warm repeats, through the kernels and through the plain versions, of a
+# task step on phase 14 (a)'s paths and of task 0's personalise on (b)
+F32_PATH_REPEATS = 3
+F32_FT_REPEATS = 2
+
+
+def f32_paths_phase(torch, card: str, workdir: Path) -> dict:
+    """Phase 14: the CLI's default ``--compute_dtype float32`` on the ViT
+    paths that run the f32 routes of #4 and #6, through the learners and
+    the CLI's flags at full width: (a) ViT-B/32 ProtoNets+LITE in ``--mode
+    train_test`` (phase 5's run, checks and trace; the gradients under a
+    fixed upstream gradient held to F32_PATH_GRAD_TOL) at 224 px and at
+    ``--frame_size 84`` (S = 5), then warm repeats of a task step through
+    the kernels and through the plain versions; (b) the ViT-B/32-CLIP
+    FineTuner+FiLM (phase 8's run and checks in f32: first-step gradients
+    per tensor within F32_PATH_GRAD_TOL, task 0's argmax held), its time to
+    personalise through the kernels and through the plain versions."""
+    vit = {"fused_qkv_attention": DEPTH, "fused_mlp_block": DEPTH}
+    vit_bwd = {"fused_qkv_attention_bwd": DEPTH, "fused_mlp_block_bwd": DEPTH}
+    t0 = time.perf_counter()
+    paths = {}
+    for px in (224, 84):
+        print(f"phase 14 (a): ViT-B/32 ProtoNets+LITE, --mode train_test, f32, {px} px")
+        paths[f"f32_vit_train_{px}"] = train_path_phase(
+            torch, card, workdir / f"vit_train_{px}", frame_size=px, dtype="float32",
+            plain_repeats=F32_PATH_REPEATS)
+    paths["f32_finetune_vit_film"] = finetuner_phase(
+        torch, card, workdir / "finetune_vit", "phase 14 (b): ViT-B/32-CLIP FineTuner+FiLM, f32",
+        ["--feature_extractor", "vit_b_32_clip", "--adapt_features"], vit, vit_bwd,
+        repeats=F32_FT_REPEATS, dtype="float32", plain_timed=True)
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def main(argv=None) -> int:
     global SEED
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one GPU")
@@ -3666,6 +3820,8 @@ def main(argv=None) -> int:
         paths.update(distributed_phase(torch, card, Path(tmp) / "distributed"))
         # phase 13: the configurations that no earlier phase runs
         paths.update(unrun_configs_phase(torch, card, Path(tmp) / "unrun"))
+        # phase 14: the f32 ViT train and FineTuner+FiLM paths (#4's and #6's f32 routes)
+        paths.update(f32_paths_phase(torch, card, Path(tmp) / "f32_paths"))
     # the kernels each path must launch; a kernel's row reports the first
     # path that launches it
     path_kernels = {"eval": ["fused_qkv_attention", "fused_mlp_block"],
@@ -3697,7 +3853,13 @@ def main(argv=None) -> int:
                                                "fused_qkv_attention_bwd", "fused_mlp_block_bwd",
                                                "mahalanobis_logits"],
                     "clip_cnaps": ["fused_qkv_attention", "fused_mlp_block"],
-                    "v2_s_learn_extractor": ["fused_dw_act"]}
+                    "v2_s_learn_extractor": ["fused_dw_act"],
+                    "f32_vit_train_224": ["fused_qkv_attention", "fused_mlp_block",
+                                          "fused_qkv_attention_bwd", "fused_mlp_block_bwd"],
+                    "f32_vit_train_84": ["fused_qkv_attention", "fused_mlp_block",
+                                         "fused_qkv_attention_bwd", "fused_mlp_block_bwd"],
+                    "f32_finetune_vit_film": ["fused_qkv_attention", "fused_mlp_block",
+                                              "fused_qkv_attention_bwd", "fused_mlp_block_bwd"]}
     path_of = {}
     for path, names in path_kernels.items():
         unused = [n for n in names if paths[path][n] < 1]

@@ -430,6 +430,251 @@ __device__ __forceinline__ void attend_packed_f32(const float* qkv, int ld, int 
 }
 
 // ---------------------------------------------------------------------------
+// The f32 backward over a row tile that packs whole sequences (#4's f32
+// route, the counterpart of attend_packed_f32), with work sized to S: qkv
+// holds the tile's q | k | v rows of one head ld floats apart (ld = 4 mod
+// 32), gs its cotangent rows of the head (64 floats apart); rows < rows are
+// real, S a sequence. Two passes over units of kQRows rows of a sequence,
+// a warp a unit (unit u of the block's warp u mod warps, in order):
+//   1. query rows r0 .. r0 + 3 (4c .. of the sequence): lane j scores keys
+//      j and (kTwo) j + 32, s = q k^T and dp = g v^T, 64-term dots in
+//      ascending order; the softmax and ds over the warp's lanes in f32
+//      (p = softmax(s * scale), ds = p (dp - rowsum(dp p)) * scale); p and
+//      ds to the sequence's [query][key] tiles in shared memory (rows sp =
+//      S rounded up to 4 floats apart); then lane l sums dq = ds k for
+//      columns 2 l, 2 l + 1 over the keys in order;
+//   2. after a barrier, key rows j0 .. j0 + 3: lane l sums dk = ds^T q and
+//      dv = p^T g for columns 2 l, 2 l + 1 over the query rows in order.
+// dq, dk and dv leave in f32 to out (row 0 of the tile, the head's dq
+// column; rows ldo = 3D apart, dk D and dv 2D further), and each lane keeps
+// the column sums of its rows over its units; the warps' sums, added in
+// warp order, are the tile's row of db's partials (part: the head's dq
+// column of it). pd holds 2 S sp floats a sequence (p, then ds); red,
+// 192 floats a warp, may alias qkv. Ends after a barrier.
+// ---------------------------------------------------------------------------
+__host__ __device__ __forceinline__ int packed_ld(int S) { return (S + 3) & ~3; }
+
+template <bool kTwo>
+__device__ __forceinline__ void attend_packed_bwd_queries(const float* qkv, int ld,
+                                                          const float* gs, int first, int r0,
+                                                          int nq, int S, float* ps, float* dss,
+                                                          float* __restrict__ out, size_t ldo,
+                                                          float (&cs)[2]) {
+  const int lane = threadIdx.x % 32;
+  const int sp = packed_ld(S);
+  // a lane past S reads key 0 (a real row) and masks its score; a row past
+  // nq repeats the unit's last and is not stored
+  const int j0 = first + (lane < S ? lane : 0), j1 = first + (lane + 32 < S ? lane + 32 : 0);
+  const float* k0 = qkv + j0 * ld + kHeadDim;
+  const float* k1 = qkv + j1 * ld + kHeadDim;
+  const float* q[kQRows];
+  const float* gr[kQRows];
+#pragma unroll
+  for (int i = 0; i < kQRows; ++i) {
+    q[i] = qkv + (r0 + min(i, nq - 1)) * ld;
+    gr[i] = gs + (r0 + min(i, nq - 1)) * kHeadDim;
+  }
+  float s0[kQRows], s1[kQRows], d0[kQRows], d1[kQRows];
+#pragma unroll
+  for (int i = 0; i < kQRows; ++i) s0[i] = s1[i] = d0[i] = d1[i] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < kHeadDim; d += 4) {
+    const float4 ka = *reinterpret_cast<const float4*>(k0 + d);
+    const float4 va = *reinterpret_cast<const float4*>(k0 + kHeadDim + d);
+    float4 kc, vc;
+    if (kTwo) {
+      kc = *reinterpret_cast<const float4*>(k1 + d);
+      vc = *reinterpret_cast<const float4*>(k1 + kHeadDim + d);
+    }
+#pragma unroll
+    for (int i = 0; i < kQRows; ++i) {
+      const float4 qv = *reinterpret_cast<const float4*>(q[i] + d);
+      const float4 gv = *reinterpret_cast<const float4*>(gr[i] + d);
+      s0[i] = fmaf(qv.x, ka.x, s0[i]); s0[i] = fmaf(qv.y, ka.y, s0[i]);
+      s0[i] = fmaf(qv.z, ka.z, s0[i]); s0[i] = fmaf(qv.w, ka.w, s0[i]);
+      d0[i] = fmaf(gv.x, va.x, d0[i]); d0[i] = fmaf(gv.y, va.y, d0[i]);
+      d0[i] = fmaf(gv.z, va.z, d0[i]); d0[i] = fmaf(gv.w, va.w, d0[i]);
+      if (kTwo) {
+        s1[i] = fmaf(qv.x, kc.x, s1[i]); s1[i] = fmaf(qv.y, kc.y, s1[i]);
+        s1[i] = fmaf(qv.z, kc.z, s1[i]); s1[i] = fmaf(qv.w, kc.w, s1[i]);
+        d1[i] = fmaf(gv.x, vc.x, d1[i]); d1[i] = fmaf(gv.y, vc.y, d1[i]);
+        d1[i] = fmaf(gv.z, vc.z, d1[i]); d1[i] = fmaf(gv.w, vc.w, d1[i]);
+      }
+    }
+  }
+  const float scale = 1.0f / sqrtf(static_cast<float>(kHeadDim));
+  float m[kQRows], sum[kQRows], t[kQRows];
+#pragma unroll
+  for (int i = 0; i < kQRows; ++i) {
+    s0[i] = lane < S ? s0[i] * scale : -INFINITY;
+    s1[i] = kTwo && lane + 32 < S ? s1[i] * scale : -INFINITY;
+    m[i] = fmaxf(s0[i], s1[i]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int i = 0; i < kQRows; ++i) m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], o));
+#pragma unroll
+  for (int i = 0; i < kQRows; ++i) {
+    s0[i] = expf(s0[i] - m[i]);
+    s1[i] = kTwo ? expf(s1[i] - m[i]) : 0.f;
+    sum[i] = s0[i] + s1[i];
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int i = 0; i < kQRows; ++i) sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], o);
+#pragma unroll
+  for (int i = 0; i < kQRows; ++i) {  // p, and rowsum(dp p) (0 past S: p is 0 there)
+    s0[i] = s0[i] / sum[i];
+    s1[i] = s1[i] / sum[i];
+    t[i] = d0[i] * s0[i] + d1[i] * s1[i];
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int i = 0; i < kQRows; ++i) t[i] += __shfl_xor_sync(0xffffffffu, t[i], o);
+#pragma unroll
+  for (int i = 0; i < kQRows; ++i) {  // p and ds * scale of keys lane and lane + 32
+    if (i < nq) {
+      const int row = (r0 - first + i) * sp;
+      if (lane < S) {
+        ps[row + lane] = s0[i];
+        dss[row + lane] = s0[i] * (d0[i] - t[i]) * scale;
+      }
+      if (kTwo && lane + 32 < S) {
+        ps[row + 32 + lane] = s1[i];
+        dss[row + 32 + lane] = s1[i] * (d1[i] - t[i]) * scale;
+      }
+    }
+  }
+  __syncwarp();
+  // dq = ds k over the S keys in order, 4 keys a step
+  float o0[kQRows], o1[kQRows];
+#pragma unroll
+  for (int i = 0; i < kQRows; ++i) o0[i] = o1[i] = 0.f;
+  const float* kk = qkv + first * ld + kHeadDim + 2 * lane;
+  const float* dsr = dss + (r0 - first) * sp;
+  int j = 0;
+  for (; j + 4 <= S; j += 4) {
+    float2 kv[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) kv[u] = *reinterpret_cast<const float2*>(kk + (j + u) * ld);
+#pragma unroll
+    for (int i = 0; i < kQRows; ++i) {
+      const float4 d4 = *reinterpret_cast<const float4*>(dsr + min(i, nq - 1) * sp + j);
+      const float dt[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        o0[i] = fmaf(dt[u], kv[u].x, o0[i]);
+        o1[i] = fmaf(dt[u], kv[u].y, o1[i]);
+      }
+    }
+  }
+  for (; j < S; ++j) {
+    const float2 kv = *reinterpret_cast<const float2*>(kk + j * ld);
+#pragma unroll
+    for (int i = 0; i < kQRows; ++i) {
+      const float dv = dsr[min(i, nq - 1) * sp + j];
+      o0[i] = fmaf(dv, kv.x, o0[i]);
+      o1[i] = fmaf(dv, kv.y, o1[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kQRows; ++i)
+    if (i < nq) {
+      *reinterpret_cast<float2*>(out + static_cast<size_t>(r0 + i) * ldo + 2 * lane) =
+          make_float2(o0[i], o1[i]);
+      cs[0] += o0[i];
+      cs[1] += o1[i];
+    }
+}
+
+// dk = ds^T q and dv = p^T g of key rows j0 .. j0 + nk - 1 (j0 a multiple of
+// 4) of the sequence whose rows start at `first`, over its S query rows in
+// order
+__device__ __forceinline__ void attend_packed_bwd_keys(const float* qkv, int ld, const float* gs,
+                                                       int first, int j0, int nk, int S,
+                                                       const float* ps, const float* dss,
+                                                       float* __restrict__ out, size_t ldo,
+                                                       int D, float (&ck)[2], float (&cv)[2]) {
+  const int lane = threadIdx.x % 32;
+  const int sp = packed_ld(S);
+  float dk[kQRows][2], dv[kQRows][2];
+#pragma unroll
+  for (int u = 0; u < kQRows; ++u) dk[u][0] = dk[u][1] = dv[u][0] = dv[u][1] = 0.f;
+  const float* qr = qkv + first * ld + 2 * lane;
+  const float* gr = gs + first * kHeadDim + 2 * lane;
+  for (int i = 0; i < S; ++i) {
+    const float2 qv = *reinterpret_cast<const float2*>(qr + i * ld);
+    const float2 gv = *reinterpret_cast<const float2*>(gr + i * kHeadDim);
+    // columns j0 + 3 < sp stay inside the row; those past S are not stored
+    const float4 p4 = *reinterpret_cast<const float4*>(ps + i * sp + j0);
+    const float4 d4 = *reinterpret_cast<const float4*>(dss + i * sp + j0);
+    const float pt[4] = {p4.x, p4.y, p4.z, p4.w};
+    const float dt[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+    for (int u = 0; u < kQRows; ++u) {
+      dk[u][0] = fmaf(dt[u], qv.x, dk[u][0]);
+      dk[u][1] = fmaf(dt[u], qv.y, dk[u][1]);
+      dv[u][0] = fmaf(pt[u], gv.x, dv[u][0]);
+      dv[u][1] = fmaf(pt[u], gv.y, dv[u][1]);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kQRows; ++u)
+    if (u < nk) {
+      float* o = out + static_cast<size_t>(first + j0 + u) * ldo + 2 * lane;
+      *reinterpret_cast<float2*>(o + D) = make_float2(dk[u][0], dk[u][1]);
+      *reinterpret_cast<float2*>(o + 2 * D) = make_float2(dv[u][0], dv[u][1]);
+      ck[0] += dk[u][0]; ck[1] += dk[u][1];
+      cv[0] += dv[u][0]; cv[1] += dv[u][1];
+    }
+}
+
+__device__ __forceinline__ void attention_backward_packed_f32(
+    const float* qkv, int ld, const float* gs, int rows, int S, float* pd,
+    float* __restrict__ out, size_t ldo, int D, float* red, float* __restrict__ part) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32;
+  const int sp = packed_ld(S);
+  const int chunks = (S + kQRows - 1) / kQRows;
+  const int units = rows / S * chunks;
+  float cs[3][2] = {};  // the lane's column sums of dq, dk, dv
+  for (int u = warp; u < units; u += warps) {
+    const int q = u / chunks, c = u % chunks;
+    float* ps = pd + static_cast<size_t>(q) * 2 * S * sp;
+    if (S > 32)
+      attend_packed_bwd_queries<true>(qkv, ld, gs, q * S, q * S + kQRows * c,
+                                      min(kQRows, S - kQRows * c), S, ps, ps + S * sp, out, ldo,
+                                      cs[0]);
+    else
+      attend_packed_bwd_queries<false>(qkv, ld, gs, q * S, q * S + kQRows * c,
+                                       min(kQRows, S - kQRows * c), S, ps, ps + S * sp, out, ldo,
+                                       cs[0]);
+    __syncwarp();  // the warp's next unit may read what this one wrote
+  }
+  __syncthreads();  // p and ds of every query row
+  for (int u = warp; u < units; u += warps) {
+    const int q = u / chunks, c = u % chunks;
+    const float* ps = pd + static_cast<size_t>(q) * 2 * S * sp;
+    attend_packed_bwd_keys(qkv, ld, gs, q * S, kQRows * c, min(kQRows, S - kQRows * c), S, ps,
+                           ps + S * sp, out, ldo, D, cs[1], cs[2]);
+  }
+  __syncthreads();  // qkv is dead: red may take its place
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    red[warp * 3 * kHeadDim + p * kHeadDim + 2 * lane] = cs[p][0];
+    red[warp * 3 * kHeadDim + p * kHeadDim + 2 * lane + 1] = cs[p][1];
+  }
+  __syncthreads();
+  if (threadIdx.x < 3 * kHeadDim) {  // the warps' sums in warp order
+    float s = 0.f;
+    for (int w = 0; w < warps; ++w) s += red[w * 3 * kHeadDim + threadIdx.x];
+    part[(threadIdx.x / kHeadDim) * D + threadIdx.x % kHeadDim] = s;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // The f32 backward of one (batch row b, head h) on the CUDA cores: q, k, v
 // from a qkv (B, S, 3D) in T, g (B, S, D) in T; dq, dk, dv written in f32
 // to the head's columns of dqkv (B, S, 3D) (#2's output, #4's workspace).

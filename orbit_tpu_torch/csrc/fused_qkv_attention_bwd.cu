@@ -44,10 +44,33 @@
 // No atomics: every output and partial has one writer, so two calls agree
 // bit for bit.
 //
-// f32, and bf16 at other widths: the same stages on the CUDA cores (true
-// f32): the products as common.cuh's FMA loops, the attention backward as
-// attention.cuh's f32 block in 4 x 4 register tiles (shared with #2,
-// tiny_attention.cu) writing an f32 dqkv, db as a two-pass column sum.
+// f32 (the CLI's default --compute_dtype), D a multiple of 128: three
+// launches on sgemm.cuh's f32 mainloop (true f32 FMA on the CUDA cores,
+// TF32 off).
+// 1. One block of 4 x BM threads per (head, row tile), the tiles of kernel
+//    A's f32 route (whole sequences packed into 128 or 160 rows,
+//    kernels/plans.py::qkv_bwd_f32_rows): the recompute qkv = x . W + b of
+//    the head's 192 columns (4 x 12 sums a thread) into shared memory, as
+//    kernel A computes it, and g's head columns beside it; then
+//    attention.cuh's attention_backward_packed_f32 with work sized to S
+//    (at S = 5 the old per-(batch row, head) block of 64 rows spent 59 of
+//    them on padding): dq, dk and dv to an f32 (B,S,3D) workspace, and the
+//    tile's column sums as one row of db's partials. qkv never reaches
+//    device memory.
+// 2. sgemm_grads.cuh's launch: dW = x^T . dqkv (A MN-major, B MN-major,
+//    ragged K = B*S, in runs of K doing no more work than a dx block) and
+//    dx = dqkv . W^T (A K-major, B K-major), 128 x 128 tiles (dx's 64 rows
+//    where they would leave SMs idle), the longer walk first.
+// 3. db: the tiles' partials added in tile order; where dW's K ran in
+//    runs, one more launch adds them in run order.
+// The attention stage's shared memory (q | k | v, g, then p and ds of
+// every sequence: 224 KB at 160 rows, S = 50) holds one block an SM.
+//
+// bf16 at other widths, and f32 at widths that are no multiple of 128: the
+// same stages on the CUDA cores: the products as common.cuh's FMA loops,
+// the attention backward as attention.cuh's f32 block in 4 x 4 register
+// tiles (shared with #2, tiny_attention.cu) writing an f32 dqkv, db as a
+// two-pass column sum.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -58,6 +81,8 @@
 #include "attention.cuh"
 #include "common.cuh"
 #include "grads.cuh"
+#include "sgemm.cuh"
+#include "sgemm_grads.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -116,6 +141,121 @@ int launch_fma(const T* x, const T* w, const T* bias, const T* g, T* qkv, float*
                                 rows, s))
     return e;
   return orbit::colsum(orbit::Column<float>{dqkv, d3}, partial, db, rows, d3, s);
+}
+
+// ---------------------------------------------------------------------------
+// f32 on sgemm.cuh's mainloop, D a multiple of 128
+// ---------------------------------------------------------------------------
+constexpr int kF32Cols = 3 * kHeadDim;  // 192: [q | k | v] of one head
+constexpr int kQkvLd = kF32Cols + 4;    // 196 = 4 (mod 32): k rows on distinct banks
+constexpr size_t kMaxSmem = 232448;     // shared memory an H100 block may take
+
+// The shared memory of a tile of BM rows holding nseq sequences of S: the
+// mainloop's ring, then q | k | v (BM x 196), g (BM x 64) and p and ds of
+// every sequence (2 S sp, sp = S rounded up to 4); mirrored by
+// kernels/plans.py::qkv_bwd_f32_smem
+template <int BM>
+inline size_t f32_bwd_smem(int nseq, int S) {
+  const size_t ring = orbit::sg::Tile<BM, kF32Cols, 4 * BM>::kSmemBytes;
+  const size_t attn = sizeof(float) * (static_cast<size_t>(BM) * (kQkvLd + kHeadDim) +
+                                       2ull * nseq * S * orbit::attn::packed_ld(S));
+  return ring > attn ? ring : attn;
+}
+
+// One block per (head, row tile of nseq whole sequences).
+template <int BM>
+__global__ void __launch_bounds__(4 * BM, 1)
+qkv_attention_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                             const float* __restrict__ bias, const float* __restrict__ g,
+                             float* __restrict__ dqkv, float* __restrict__ part, int B, int S,
+                             int D, int nseq) {
+  constexpr int NT = 4 * BM;
+  extern __shared__ __align__(16) float bwd_smem[];
+  const int h = blockIdx.x;
+  const int seq0 = blockIdx.y * nseq;        // first sequence of the tile
+  const int rows = min(nseq, B - seq0) * S;  // its real rows
+  const int row0 = seq0 * S;                 // its first row of x
+  const int cols[3] = {h * kHeadDim, D + h * kHeadDim, 2 * D + h * kHeadDim};
+  orbit::sg::Acc<BM, kF32Cols, NT> acc;
+  orbit::sg::mainloop<BM, kF32Cols, NT>(x, D, row0, row0 + rows, w, 3 * D, cols,
+                                        D / orbit::sg::kBK, bwd_smem, acc);
+  __syncthreads();  // every stage consumed: q, k, v and g reuse them
+  // qkv = f32 GEMM + b: the TPU kernel's rounding point (the identity in f32)
+  orbit::sg::for_each_acc<BM, kF32Cols, NT>(acc, [&](int r, int c, float4 v) {
+    const float4 bv = *reinterpret_cast<const float4*>(
+        bias + (c / kHeadDim) * D + h * kHeadDim + c % kHeadDim);
+    *reinterpret_cast<float4*>(bwd_smem + r * kQkvLd + c) =
+        make_float4(v.x + bv.x, v.y + bv.y, v.z + bv.z, v.w + bv.w);
+  });
+  float* gs = bwd_smem + BM * kQkvLd;
+  for (int e = threadIdx.x; e < rows * (kHeadDim / 4); e += NT) {
+    const int r = e / (kHeadDim / 4), c = (e % (kHeadDim / 4)) * 4;
+    orbit::attn::cp_async16(gs + r * kHeadDim + c,
+                            g + static_cast<size_t>(row0 + r) * D + h * kHeadDim + c, true);
+  }
+  orbit::attn::cp_async_commit();
+  orbit::attn::cp_async_wait<0>();
+  __syncthreads();
+  orbit::attn::attention_backward_packed_f32(
+      bwd_smem, kQkvLd, gs, rows, S, gs + BM * kHeadDim,
+      dqkv + static_cast<size_t>(row0) * 3 * D + h * kHeadDim, 3 * D, D, bwd_smem,
+      part + static_cast<size_t>(blockIdx.y) * 3 * D + h * kHeadDim);
+}
+
+template <int BM>
+int launch_attention_f32(const float* x, const float* w, const float* bias, const float* g,
+                         float* dqkv, float* part, int B, int S, int D, int H, int nseq,
+                         cudaStream_t s) {
+  const size_t bytes = f32_bwd_smem<BM>(nseq, S);
+  if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  static bool configured = false;  // one flag per instantiation
+  if (const int e =
+          orbit::sg::configure(qkv_attention_bwd_f32_kernel<BM>, kMaxSmem, &configured))
+    return e;
+  qkv_attention_bwd_f32_kernel<BM><<<dim3(H, (B + nseq - 1) / nseq), 4 * BM, bytes, s>>>(
+      x, w, bias, g, dqkv, part, B, S, D, nseq);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// nseq: whole sequences a row tile, x_rows and wsplit: the grads launch's
+// data tile rows and runs of dW's K (the caller's plan), sms the card's
+// SMs (the runs' second pass takes 4 blocks an SM); the tile is 128
+// rows where they hold its sequences, else 160. partial: db's partials, a
+// row a tile, then (wsplit > 1) dW's runs.
+int launch_f32_tiled(const float* x, const float* w, const float* bias, const float* g,
+                     float* dqkv, float* partial, float* dx, float* dw, float* db, int B, int S,
+                     int D, int H, int nseq, int x_rows, int wsplit, int sms, cudaStream_t s) {
+  if (nseq < 1 || nseq * S > 160) return static_cast<int>(cudaErrorInvalidValue);
+  const int row_tiles = (B + nseq - 1) / nseq, rows = B * S, d3 = 3 * D;
+  if (const int e = nseq * S <= 128
+                        ? launch_attention_f32<128>(x, w, bias, g, dqkv, partial, B, S, D, H,
+                                                    nseq, s)
+                        : launch_attention_f32<160>(x, w, bias, g, dqkv, partial, B, S, D, H,
+                                                    nseq, s))
+    return e;
+  float* w_part = partial + static_cast<size_t>(row_tiles) * d3;
+  orbit::sgrads::Plan<1> plan{};
+  plan.wsplit = wsplit;
+  plan.w_part = w_part;
+  plan.x_rows = x_rows;
+  plan.wa[0] = x;
+  plan.wb[0] = dqkv;
+  plan.w_out[0] = dw;
+  plan.w_m[0] = D;
+  plan.w_n[0] = d3;
+  plan.xa = dqkv;
+  plan.xb = w;
+  plan.x_out = dx;
+  plan.x_n = D;
+  plan.x_k = d3;
+  plan.rows = rows;
+  if (const int e = orbit::sgrads::launch(plan, s)) return e;
+  if (wsplit > 1) {
+    const orbit::sgrads::Runs runs{w_part, dw, wsplit, D * d3};
+    if (const int e = orbit::sgrads::sum_runs(&runs, 1, sms, s)) return e;
+  }
+  const orbit::Partials job{partial, db, row_tiles, d3};
+  return orbit::sum_partials(&job, 1, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -263,7 +403,7 @@ int launch_wgmma(const bf16* x, const bf16* w, const bf16* bias, const bf16* g, 
 template <typename T>
 int launch(const void* x_, const void* w_, const void* bias_, const void* g_, void* qkv_,
            void* dqkv_, void* partial, void* dx_, void* dw, void* db, int B, int S, int D,
-           int H, void* stream) {
+           int H, int nseq, int x_rows, int wsplit, int sms, void* stream) {
   if (B < 1 || S < 1 || S > kMaxTokens || H < 1 || D != H * kHeadDim)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -271,11 +411,16 @@ int launch(const void* x_, const void* w_, const void* bias_, const void* g_, vo
   const T* w = static_cast<const T*>(w_);
   const T* bias = static_cast<const T*>(bias_);
   const T* g = static_cast<const T*>(g_);
-  if constexpr (std::is_same<T, bf16>::value) {
-    if (D % kTile == 0)
+  if (D % kTile == 0) {
+    if constexpr (std::is_same<T, bf16>::value)
       return launch_wgmma(x, w, bias, g, static_cast<T*>(qkv_), static_cast<T*>(dqkv_),
                           static_cast<float*>(partial), static_cast<T*>(dx_),
                           static_cast<float*>(dw), static_cast<float*>(db), B, S, D, H, s);
+    else
+      return launch_f32_tiled(x, w, bias, g, static_cast<float*>(dqkv_),
+                              static_cast<float*>(partial), static_cast<float*>(dx_),
+                              static_cast<float*>(dw), static_cast<float*>(db), B, S, D, H, nseq,
+                              x_rows, wsplit, sms, s);
   }
   return launch_fma<T>(x, w, bias, g, static_cast<T*>(qkv_), static_cast<float*>(dqkv_),
                        static_cast<float*>(partial), static_cast<T*>(dx_),
@@ -284,21 +429,30 @@ int launch(const void* x_, const void* w_, const void* bias_, const void* g_, vo
 
 }  // namespace
 
-// x, W, b, g in T; workspaces qkv (B,S,3D) in T, dqkv (B,S,3D: bf16 on the
-// bf16 route for D a multiple of 128, f32 otherwise) and the partial sums
-// of db (f32: B x 3D on the bf16 route, ceil(B*S/256) x 3D otherwise);
-// outputs dx (B,S,D) in T, dW (D,3D) and db (3D) in f32. Returns
-// cudaGetLastError() of the launches.
+// x, W, b, g in T; workspaces qkv (B,S,3D) in T (unread and may be null on
+// the f32 route at D a multiple of 128), dqkv (B,S,3D: bf16 on the bf16
+// route for D a multiple of 128, f32 otherwise) and the partial sums of db
+// (f32: B x 3D on the bf16 route, row tiles x 3D on the f32 route at D a
+// multiple of 128, then wsplit x D x 3D for dW's runs where wsplit > 1,
+// ceil(B*S/256) x 3D otherwise); outputs dx (B,S,D) in T, dW (D,3D) and db
+// (3D) in f32; the f32 route's plan: nseq whole sequences a row tile
+// (kernels/plans.py::qkv_bwd_f32_rows), the grads launch's data tile rows
+// x_rows and dW's runs wsplit (plans.py::sgemm_grads_plan), the card's
+// SMs. Returns cudaGetLastError() of the launches.
 extern "C" int orbit_fused_qkv_attention_bwd_f32(const void* x, const void* w, const void* b,
                                                  const void* g, void* qkv, void* dqkv,
                                                  void* partial, void* dx, void* dw, void* db,
-                                                 int B, int S, int D, int H, void* stream) {
-  return launch<float>(x, w, b, g, qkv, dqkv, partial, dx, dw, db, B, S, D, H, stream);
+                                                 int B, int S, int D, int H, int nseq,
+                                                 int x_rows, int wsplit, int sms,
+                                                 void* stream) {
+  return launch<float>(x, w, b, g, qkv, dqkv, partial, dx, dw, db, B, S, D, H, nseq, x_rows,
+                       wsplit, sms, stream);
 }
 
 extern "C" int orbit_fused_qkv_attention_bwd_bf16(const void* x, const void* w, const void* b,
                                                   const void* g, void* qkv, void* dqkv,
                                                   void* partial, void* dx, void* dw, void* db,
                                                   int B, int S, int D, int H, void* stream) {
-  return launch<bf16>(x, w, b, g, qkv, dqkv, partial, dx, dw, db, B, S, D, H, stream);
+  return launch<bf16>(x, w, b, g, qkv, dqkv, partial, dx, dw, db, B, S, D, H, 0, 0, 0, 0,
+                      stream);
 }

@@ -50,12 +50,16 @@ _SIGNATURES = {
     # h, rows, D, hidden, eps, (f32: the row tiles of fc1 and fc2,) stream
     "orbit_fused_mlp_block_f32": [_P] * 10 + [_I, _I, _I, _F, _I, _I, _P],
     "orbit_fused_mlp_block_bf16": [_P] * 10 + [_I, _I, _I, _F, _P],
-    # x, w, b, g, qkv, dqkv, partial, dx, dw, db, B, S, D, H, stream
-    "orbit_fused_qkv_attention_bwd_f32": [_P] * 10 + [_I] * 4 + [_P],
+    # x, w, b, g, qkv, dqkv, partial, dx, dw, db, B, S, D, H, (f32: the f32
+    # route's sequences a row tile, data tile rows, runs of dW's K and the
+    # card's SMs,) stream
+    "orbit_fused_qkv_attention_bwd_f32": [_P] * 10 + [_I] * 8 + [_P],
     "orbit_fused_qkv_attention_bwd_bf16": [_P] * 10 + [_I] * 4 + [_P],
     # x, g, ln_g, ln_b, w1, b1, w2, stats, xn, hg, hid, dxn, partial, dx,
-    # dln_g, dln_b, dw1, db1, dw2, db2, rows, D, hidden, eps, stream
-    "orbit_fused_mlp_block_bwd_f32": [_P] * 20 + [_I, _I, _I, _F, _P],
+    # dln_g, dln_b, dw1, db1, dw2, db2, rows, D, hidden, eps, (f32: the hidden
+    # kernel's tile rows, the grads launch's data tile rows, runs of the
+    # weight gradients' K and the card's SMs,) stream
+    "orbit_fused_mlp_block_bwd_f32": [_P] * 20 + [_I, _I, _I, _F, _I, _I, _I, _I, _P],
     "orbit_fused_mlp_block_bwd_bf16": [_P] * 20 + [_I, _I, _I, _F, _P],
     # qkv, out, B, S, D, H, stream
     "orbit_tiny_attention_f32": [_P, _P, _I, _I, _I, _I, _P],

@@ -8,7 +8,10 @@ logits (#7, ``csrc/mahalanobis.cu``); the tiles, walks, rings and strips
 of the bf16 attention on a raw qkv and its backward (#1 and #2,
 ``csrc/tiny_attention.cu``); the row tiles and blocks of the f32 routes of
 kernels A and B on the f32 mainloop (``csrc/sgemm.cuh``), with the
-mainloop's order of sums and kernel A's f32 route emulated.
+mainloop's order of sums and kernel A's f32 route emulated; the tiles,
+shared memory and partial sums of the f32 routes of #4 and #6 on that
+mainloop, whose operand layouts, ragged K and packed attention backward
+are emulated with them.
 
 The backward kernels #4 and #6 never add into a shared sum: every partial
 sum has one writer (a block), covers a fixed run of rows, and a second pass
@@ -68,12 +71,13 @@ def fixed_order_sum(partials: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def mlp_bwd_partials(rows: int, d: int, hidden: int, wgmma: bool) -> int:
+def mlp_bwd_partials(rows: int, d: int, hidden: int, tiled: bool) -> int:
     """Floats of #6's partial-sum workspace: db1's partials (one row a
-    128-row tile on the wgmma route, a 256-row chunk of common.cuh's column
-    sum otherwise) over hidden, then the LayerNorm backward's dγ, dβ and
-    db2 partials, one row of each per LN_ROWS rows, over D."""
-    db1_chunks = -(-rows // (TILE if wgmma else COLSUM_ROWS))
+    128-row tile of the hidden kernel on the tiled routes, bf16's wgmma and
+    f32's sgemm; a 256-row chunk of common.cuh's column sum otherwise) over
+    hidden, then the LayerNorm backward's dγ, dβ and db2 partials, one row
+    of each per LN_ROWS rows, over D."""
+    db1_chunks = -(-rows // (TILE if tiled else COLSUM_ROWS))
     return db1_chunks * hidden + 3 * -(-rows // LN_ROWS) * d
 
 
@@ -659,3 +663,259 @@ def qkv_f32_emulate(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, num_he
             out[row0 + first:row0 + first + s, hh * ATTN_HEAD:(hh + 1) * ATTN_HEAD] = o
             writes[row0 + first:row0 + first + s, hh] += 1
     return out.reshape(n, s, d), writes
+
+
+# ---- the f32 routes of the backward kernels #4 and #6 on the f32 mainloop
+# (csrc/sgemm.cuh, csrc/sgemm_grads.cuh, csrc/fused_qkv_attention_bwd.cu,
+# csrc/mlp_block_bwd.cu) ----
+SG_BK = 32        # kBK: depth of a stage
+SG_STAGES = 3     # kStages
+SG_PAD = 4        # kAPad: floats past a transposed stage row
+QKV_BWD_LD = 3 * ATTN_HEAD + 4  # kQkvLd: the q | k | v tile's row stride
+HIDDEN_F32_TILES = (128, 64)    # #6's f32 hidden kernel: BM rows, 4 BM threads
+
+
+def sgemm_smem(bm: int, bn: int, b_k_major: bool = False) -> int:
+    """``sgemm.cuh``'s ``Tile::kSmemBytes``: the ring's stages of A [k][m]
+    (rows bm + 4 floats apart) and B [k][n] (bn floats apart, bn + 4 when
+    B is K-major and its copies transpose)."""
+    return 4 * SG_STAGES * SG_BK * (bm + SG_PAD + bn + (SG_PAD if b_k_major else 0))
+
+
+def packed_ld(s: int) -> int:
+    """``attention.cuh::packed_ld``: a row of a sequence's p and ds tiles,
+    S rounded up to 4 floats."""
+    return (s + 3) & ~3
+
+
+def qkv_bwd_f32_smem(rows: int, nseq: int, s: int) -> int:
+    """Shared memory of #4's f32 attention block (``f32_bwd_smem``): the
+    mainloop's ring, or q | k | v (rows x 196), g (rows x 64) and p and ds
+    of each of its nseq sequences of S (2 S packed_ld(S)), the larger."""
+    attn = 4 * (rows * (QKV_BWD_LD + ATTN_HEAD) + 2 * nseq * s * packed_ld(s))
+    return max(sgemm_smem(rows, 3 * ATTN_HEAD), attn)
+
+
+def qkv_bwd_f32_rows(b: int, s: int, h: int, sms: int) -> int:
+    """Rows of the tile #4's f32 route launches: kernel A's f32 tile
+    (:func:`qkv_f32_rows`), whose sequences the recompute packs the same
+    way, unless the 160-row tile's shared memory would pass SMEM_LIMIT (p
+    and ds of three sequences of 53 tokens); 128 wherever the tile's
+    sequences fit in 128 rows, as the C entry launches them: 160 at S 50,
+    B 256 (3 sequences, 224 KB), 128 at S 5."""
+    rows = qkv_f32_rows(b, s, h, sms)
+    if qkv_bwd_f32_smem(rows, rows // s, s) > SMEM_LIMIT:
+        rows = 128
+    return 128 if rows // s * s <= 128 else rows
+
+
+def qkv_bwd_f32_blocks(b: int, s: int, h: int, sms: int = 132):
+    """The blocks of #4's f32 attention launch in launch order, as (head,
+    tile, first row, rows): grid (H, ceil(B / nseq)), nseq =
+    floor(qkv_bwd_f32_rows / S)."""
+    nseq = qkv_bwd_f32_rows(b, s, h, sms) // s
+    return [(x, y, y * nseq * s, min(nseq, b - y * nseq) * s)
+            for y in range(-(-b // nseq)) for x in range(h)]
+
+
+def hidden_f32_rows(rows: int, hidden: int, sms: int) -> int:
+    """Rows of #6's f32 hidden kernel's tiles (``launch_hidden_f32``): 128
+    (512 threads, one block an SM) where 128-row tiles give every SM two
+    blocks or more, else 64 (256 threads, two blocks an SM): ViT-B/32 at B
+    13 and 16 (S 50) and at S 5, where 128-row tiles would run 144 to 240
+    blocks in two waves."""
+    return 128 if -(-rows // 128) * (hidden // TILE) >= 2 * sms else 64
+
+
+def sgemm_grads_plan(rows: int, weights, data, sms: int) -> tuple[int, int]:
+    """(x_rows, wsplit) of ``sgemm_grads.cuh``'s launch for the weight
+    products ``weights`` [(m, n), ...] over K = rows and the data product
+    ``data`` = (n, k): data tiles of TILE rows, or TILE // 2 where TILE-row
+    ones would number fewer than the card's SMs (S 5: 60 tiles of 128 rows
+    on 132 SMs); the weight products' K cut into the fewest runs of whole
+    stages that do no more work than a data block (its k / SG_BK stages of
+    x_rows rows: a weight stage is TILE rows), counting only runs that hold
+    a stage. ViT-B/32, B 256, S 50: #4's 400 stages in 6 runs against dx's
+    72; B 44 (64-row data tiles): 69 stages in 2 runs; none at S 5 for #6
+    (chip_smoke.py's phase 3 and 14 shapes, measured against no runs and
+    against runs that give every SM a weight block)."""
+    x_rows = TILE if -(-rows // TILE) * (data[0] // TILE) >= sms else TILE // 2
+    nk = -(-rows // SG_BK)
+    split = -(-nk // max(1, data[1] // SG_BK * x_rows // TILE))
+    return x_rows, -(-nk // -(-nk // split))
+
+
+def sgemm_grads_schedule(rows: int, weights, data, x_rows: int, wsplit: int):
+    """The blocks of ``sgemm_grads.cuh``'s launch in block order, as
+    (product, m0, n0, m_rows, k0, k1): product j < len(weights) is weight
+    gradient j, its tiles row by row and each tile's runs of K in order,
+    k0 .. k1 the run's rows; product len(weights) is the data product, its
+    tiles of x_rows rows over all of its K. The weight blocks come first
+    when a run of theirs is at least the data product's K."""
+    n_w = len(weights)
+    per = -(-(-(-rows // SG_BK)) // wsplit) * SG_BK
+    w = [(j, (t // (n // TILE)) * TILE, (t % (n // TILE)) * TILE, TILE,
+          min(q * per, rows), min((q + 1) * per, rows))
+         for j, (m, n) in enumerate(weights) for t in range(tiles(m, n)) for q in range(wsplit)]
+    x = [(n_w, (t // (data[0] // TILE)) * x_rows, (t % (data[0] // TILE)) * TILE, x_rows, 0,
+          data[1]) for t in range(-(-rows // x_rows) * (data[0] // TILE))]
+    return w + x if per >= data[1] else x + w
+
+
+def weight_grad_emulate(a: torch.Tensor, b: torch.Tensor, wsplit: int) -> torch.Tensor:
+    """A weight gradient a^T . b (a (rows, m), b (rows, n)) as the grads
+    launch forms it: each run of K by the mainloop (A MN-major), the runs'
+    partials added in run order."""
+    rows = a.shape[0]
+    per = -(-(-(-rows // SG_BK)) // wsplit) * SG_BK
+    return fixed_order_sum(torch.stack([
+        sgemm_stage_emulate(a[min(q * per, rows):min((q + 1) * per, rows)],
+                            b[min(q * per, rows):min((q + 1) * per, rows)], a_mn=True)
+        for q in range(wsplit)]))
+
+
+def qkv_bwd_f32_partials(b: int, s: int, d: int, h: int, sms: int) -> int:
+    """Floats of #4's f32 partial-sum workspace: db's, one row (3D) a row
+    tile; then, where the grads launch cuts dW's K into runs, each run's
+    dW (D x 3D)."""
+    wsplit = sgemm_grads_plan(b * s, [(d, 3 * d)], (d, 3 * d), sms)[1]
+    return (-(-b // (qkv_bwd_f32_rows(b, s, h, sms) // s)) * 3 * d
+            + (wsplit * d * 3 * d if wsplit > 1 else 0))
+
+
+def mlp_bwd_f32_partials(rows: int, d: int, hidden: int, sms: int) -> int:
+    """Floats of #6's f32 partial-sum workspace: db1's, one row (hidden) a
+    tile of the hidden kernel (:func:`hidden_f32_rows`), then the LayerNorm
+    backward's dγ, dβ and db2 partials as :func:`mlp_bwd_partials`'s, then,
+    where the grads launch cuts the weight gradients' K into runs, each
+    run's dW1 and dW2."""
+    wsplit = sgemm_grads_plan(rows, [(d, hidden), (hidden, d)], (d, hidden), sms)[1]
+    return (-(-rows // hidden_f32_rows(rows, hidden, sms)) * hidden
+            + 3 * -(-rows // LN_ROWS) * d + (wsplit * 2 * d * hidden if wsplit > 1 else 0))
+
+
+def sgemm_stage_emulate(a: torch.Tensor, b: torch.Tensor, *, a_mn: bool = False,
+                        b_k: bool = False) -> torch.Tensor:
+    """The mainloop on the CPU in f32 for either layout of each operand: A
+    (M, K) given as stored, or (``a_mn``) as A^T (K, M); B (K, N), or
+    (``b_k``) as B^T (N, K). K is walked in stages of SG_BK, the stage's k
+    past K zero-filled (a weight gradient's ragged K), and every output
+    adds its products in ascending k as :func:`sgemm_emulate` does."""
+    a = (a.T if a_mn else a).float()
+    b = (b.T if b_k else b).float()
+    m, k = a.shape
+    acc = torch.zeros(m, b.shape[1])
+    for k0 in range(0, k, SG_BK):
+        live = min(k, k0 + SG_BK) - k0
+        sa, sb = torch.zeros(m, SG_BK), torch.zeros(SG_BK, b.shape[1])
+        sa[:, :live], sb[:live] = a[:, k0:k0 + live], b[k0:k0 + live]
+        for kk in range(SG_BK):
+            acc = acc + sa[:, kk:kk + 1] * sb[kk:kk + 1]
+    return acc
+
+
+def qkv_bwd_f32_emulate(x, w, bias, g, num_heads: int, sms: int = 132):
+    """#4's f32 route on the CPU: per block of :func:`qkv_bwd_f32_blocks`,
+    the tile's q | k | v of the head by the mainloop (+ b); then
+    ``attention_backward_packed_f32`` per sequence: the scores and dp
+    64-term dots in ascending order, the softmax and ds in f32, dq = ds k
+    over the keys in order, dk = ds^T q and dv = p^T g over the query rows
+    in order; db's partial row of the tile as the block adds it (each
+    warp's units of kQRows rows in order, a unit u of warp u mod warps, the
+    warps in order). Then dx = dqkv . W^T (B K-major) and dW = x^T . dqkv
+    (A MN-major, ragged K) by the mainloop, dW's runs of K
+    (:func:`sgemm_grads_plan`) and db's partials each added in order.
+    Returns (dx, dW, db, writes of each (row, part, head))."""
+    n, s, d = x.shape
+    rows_tile = qkv_bwd_f32_rows(n, s, num_heads, sms)
+    warps, units_of = rows_tile * 4 // 32, -(-s // 4)
+    flat, gflat = x.reshape(n * s, d).float(), g.reshape(n * s, d).float()
+    dqkv = torch.full((n * s, 3 * d), float("nan"))
+    writes = torch.zeros(n * s, 3, num_heads, dtype=torch.int64)
+    part = torch.full((-(-n // (rows_tile // s)), 3 * d), float("nan"))
+    scale = 1.0 / ATTN_HEAD ** 0.5
+    for hh, tile, row0, rows in qkv_bwd_f32_blocks(n, s, num_heads, sms):
+        cols = [p * d + hh * ATTN_HEAD + c for p in range(3) for c in range(ATTN_HEAD)]
+        qkv = sgemm_stage_emulate(flat[row0:row0 + rows], w.float()[:, cols]) + bias.float()[cols]
+        q, k, v = qkv.split(ATTN_HEAD, dim=1)
+        gg = gflat[row0:row0 + rows, hh * ATTN_HEAD:(hh + 1) * ATTN_HEAD]
+        out = torch.zeros(rows, 3 * ATTN_HEAD)
+        sums = torch.zeros(warps, 3 * ATTN_HEAD)
+        for first in range(0, rows, s):
+            seq = slice(first, first + s)
+            sc, dp = torch.zeros(s, s), torch.zeros(s, s)
+            for dd in range(ATTN_HEAD):
+                sc = sc + q[seq, dd:dd + 1] * k[seq, dd][None, :]
+                dp = dp + gg[seq, dd:dd + 1] * v[seq, dd][None, :]
+            e = torch.exp(sc * scale - (sc * scale).amax(dim=1, keepdim=True))
+            p = e / e.sum(dim=1, keepdim=True)
+            ds = p * (dp - (dp * p).sum(dim=1, keepdim=True)) * scale
+            dq, dk, dv = torch.zeros(s, ATTN_HEAD), torch.zeros(s, ATTN_HEAD), torch.zeros(s, ATTN_HEAD)
+            for j in range(s):
+                dq = dq + ds[:, j:j + 1] * k[first + j][None, :]
+                dk = dk + ds[j][:, None] * q[first + j][None, :]
+                dv = dv + p[j][:, None] * gg[first + j][None, :]
+            out[seq] = torch.cat([dq, dk, dv], dim=1)
+            for c in range(units_of):  # the units' rows into their warps' sums, in order
+                u = first // s * units_of + c
+                r = slice(first + 4 * c, min(first + s, first + 4 * c + 4))
+                for i in range(r.start, r.stop):
+                    sums[u % warps, :ATTN_HEAD] += out[i, :ATTN_HEAD]
+                for i in range(r.start, r.stop):
+                    sums[u % warps, ATTN_HEAD:] += out[i, ATTN_HEAD:]
+        dqkv[row0:row0 + rows, cols] = out
+        writes[row0:row0 + rows, :, hh] += 1
+        part[tile, cols] = fixed_order_sum(sums)
+    wsplit = sgemm_grads_plan(n * s, [(d, 3 * d)], (d, 3 * d), sms)[1]
+    dx = sgemm_stage_emulate(dqkv, w, b_k=True).reshape(n, s, d)
+    return dx, weight_grad_emulate(flat, dqkv, wsplit), fixed_order_sum(part), writes
+
+
+def mlp_bwd_f32_emulate(x, ln_scale, ln_bias, w1, b1, w2, g, ln_eps: float = 1e-6,
+                        sms: int = 132):
+    """#6's f32 route on the CPU: the LayerNorm recompute; the hidden
+    kernel's two products by the mainloop (dhg = g . W2^T with B K-major),
+    its epilogue and db1's partial row of each tile (:func:`hidden_f32_rows`
+    rows) as the block adds it (a thread's 4 rows in order, the warp's 4
+    row groups by a butterfly, the warps of a column half in order); dW1 = xn^T . dhpre
+    and dW2 = hg^T . g (A MN-major, ragged K, in the plan's runs of K) and
+    dxn = dhpre . W1^T (B K-major) by the mainloop; then the LayerNorm backward and the vector
+    gradients' partials (LN_ROWS rows a chunk), every partial buffer added
+    in chunk order. Returns (dx, dγ, dβ, dW1, db1, dW2, db2)."""
+    d = x.shape[-1]
+    xf, gf = x.reshape(-1, d).float(), g.reshape(-1, d).float()
+    rows = xf.shape[0]
+    mean = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mean
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + ln_eps)
+    xhat = xc * rstd
+    xn = xhat * ln_scale.float() + ln_bias.float()
+    hpre = sgemm_stage_emulate(xn, w1) + b1.float()
+    dhg = sgemm_stage_emulate(gf, w2, b_k=True)
+    erf = torch.erf(hpre * 0.7071067811865476)
+    phi = torch.exp(-0.5 * hpre * hpre) * 0.3989422804014327
+    hg = 0.5 * hpre * (1.0 + erf)
+    dh = dhg * (0.5 * (1.0 + erf) + hpre * phi)
+    parts = []
+    bm = hidden_f32_rows(rows, dh.shape[1], sms)
+    for r0 in range(0, rows, bm):
+        tile = torch.zeros(bm, dh.shape[1])
+        tile[:min(bm, rows - r0)] = dh[r0:r0 + bm]
+        # [warp / 2][lane / 16][lane / 8 % 2][row]: rows 4 ty + i, ty = 4 (warp / 2) + lane / 8
+        t = tile.view(bm // 16, 2, 2, 4, dh.shape[1])
+        thread = t[..., 0, :] + t[..., 1, :] + t[..., 2, :] + t[..., 3, :]
+        warp = (thread[:, 0, 0] + thread[:, 0, 1]) + (thread[:, 1, 0] + thread[:, 1, 1])
+        parts.append(fixed_order_sum(warp))
+    hidden = dh.shape[1]
+    wsplit = sgemm_grads_plan(rows, [(d, hidden), (hidden, d)], (d, hidden), sms)[1]
+    dw1 = weight_grad_emulate(xn, dh, wsplit)
+    dw2 = weight_grad_emulate(hg, gf, wsplit)
+    dxn = sgemm_stage_emulate(dh, w1, b_k=True)
+    dxhat = dxn * ln_scale.float()
+    m1 = dxhat.mean(dim=-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    dx = (rstd * (dxhat - m1 - xhat * m2) + gf).reshape(x.shape)
+    return (dx, fixed_order_sum(chunk_partials(dxn * xhat, LN_ROWS)),
+            fixed_order_sum(chunk_partials(dxn, LN_ROWS)), dw1,
+            fixed_order_sum(torch.stack(parts)), dw2,
+            fixed_order_sum(chunk_partials(gf, LN_ROWS)))

@@ -191,6 +191,16 @@ def f32_tiled_route(dtype, d: int, hidden: int) -> bool:
             and hidden % plans.SG_TILE_N == 0)
 
 
+def backward_f32_tiled_route(dtype, d: int, hidden: int) -> bool:
+    """Whether the backward kernel takes its f32 route on the f32 mainloop
+    (five launches: the LayerNorm recompute, the hidden kernel's two
+    products and GELU epilogue, dW1, dW2 and dxn in one launch, the
+    LayerNorm backward, the second passes; ``launch_f32_tiled`` in
+    ``csrc/mlp_block_bwd.cu``) rather than its FMA products: f32 with D and
+    hidden multiples of ``plans.TILE``."""
+    return dtype == torch.float32 and d % plans.TILE == 0 and hidden % plans.TILE == 0
+
+
 def _launch(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps: float):
     d = x.shape[-1]
     hidden = w1.shape[1]
@@ -243,29 +253,39 @@ def _launch_backward(x, ln_scale, ln_bias, w1, b1, w2, g, ln_eps: float):
     w1c = kbuild.aligned(w1.to(x.dtype))
     w2c = kbuild.aligned(w2.to(x.dtype))
     f32 = dict(device=x.device, dtype=torch.float32)
-    wgmma = wgmma_route(x.dtype, d, hidden)
+    f32_tiled = backward_f32_tiled_route(x.dtype, d, hidden)
+    tiled = wgmma_route(x.dtype, d, hidden) or f32_tiled
+    lib = kbuild.library()
+    if x.dtype == torch.bfloat16:
+        fn, extra = lib.orbit_fused_mlp_block_bwd_bf16, []
+        partials = plans.mlp_bwd_partials(rows, d, hidden, tiled)
+    else:
+        fn, sms = lib.orbit_fused_mlp_block_bwd_f32, kbuild.sm_count(x.device)
+        # the hidden kernel's tile rows, the grads launch's data tile rows
+        # and runs of the weight gradients' K; the card's SMs
+        extra = [plans.hidden_f32_rows(rows, hidden, sms),
+                 *plans.sgemm_grads_plan(rows, [(d, hidden), (hidden, d)], (d, hidden), sms), sms]
+        partials = (plans.mlp_bwd_f32_partials(rows, d, hidden, sms) if f32_tiled
+                    else plans.mlp_bwd_partials(rows, d, hidden, False))
     work = [torch.empty((rows, 2), **f32),                             # mean, rstd
             torch.empty((rows, d), device=x.device, dtype=x.dtype),   # xn
             torch.empty((rows, hidden), device=x.device, dtype=x.dtype),  # hg
-            # cast(dhpre) on the wgmma route; hpre, then dhpre, otherwise
+            # cast(dhpre) on the tiled routes; hpre, then dhpre, otherwise
             torch.empty((rows, hidden), device=x.device,
-                        dtype=x.dtype if wgmma else torch.float32),
+                        dtype=x.dtype if tiled else torch.float32),
             torch.empty((rows, d), **f32),                            # dxn
-            torch.empty((plans.mlp_bwd_partials(rows, d, hidden, wgmma),), **f32)]
+            torch.empty((partials,), **f32)]
     dx = torch.empty_like(x)
     grads = [torch.empty((d,), **f32), torch.empty((d,), **f32),
              torch.empty((d, hidden), **f32), torch.empty((hidden,), **f32),
              torch.empty((hidden, d), **f32), torch.empty((d,), **f32)]
-    lib = kbuild.library()
-    fn = (lib.orbit_fused_mlp_block_bwd_bf16 if x.dtype == torch.bfloat16
-          else lib.orbit_fused_mlp_block_bwd_f32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(x.data_ptr(), g.data_ptr(), gam.data_ptr(), bet.data_ptr(),
                   w1c.data_ptr(), b1f.data_ptr(), w2c.data_ptr(),
                   *(t.data_ptr() for t in work), dx.data_ptr(),
                   *(t.data_ptr() for t in grads), rows, d, hidden,
-                  float(ln_eps), stream)
+                  float(ln_eps), *extra, stream)
     kbuild.check(code, "fused_mlp_block_bwd")
     kbuild.LAUNCHES["fused_mlp_block_bwd"] += 1
     return (dx, *grads)

@@ -36,6 +36,11 @@ its bf16 forward kernel runs kernel A's attention strips on A's packed row
 tiles, its bf16 backward #4's, both fed by a ring of ``cp.async`` copies
 (``csrc/tiny_attention.cu``, planned by ``kernels/plans.py::attn_fwd_plan``
 and ``attn_bwd_plan``); the backward writes dqkv in qkv's dtype.
+In f32 at D a multiple of 128 (the ViTs at the CLI's default
+``--compute_dtype``) the fused backward runs on the f32 mainloop
+(:func:`backward_f32_tiled_route`): kernel A's packed row tiles recompute
+qkv on chip and run the attention backward there, then dW and dx share one
+launch.
 Like its JAX counterpart, which no learner, backbone or script calls, no
 path of the port calls it: the ViTs always go through the fused op.
 """
@@ -186,6 +191,16 @@ def backward_wgmma_route(dtype, d: int) -> bool:
     return dtype == torch.bfloat16 and d % plans.TILE == 0
 
 
+def backward_f32_tiled_route(dtype, d: int) -> bool:
+    """Whether the backward kernel takes its f32 route on the f32 mainloop
+    (three launches: the qkv recompute and the attention backward on
+    kernel A's packed row tiles of ``plans.qkv_bwd_f32_rows`` rows, dW and
+    dx in one launch, db's second pass; ``launch_f32_tiled`` in
+    ``csrc/fused_qkv_attention_bwd.cu``) rather than its FMA stages: f32
+    with D a multiple of the products' tile width."""
+    return dtype == torch.float32 and d % plans.TILE == 0
+
+
 def _check_kernel_args(name: str, x, d: int, num_heads: int, *others) -> None:
     """Refuse what the kernels cannot take; ``d`` is the attention width
     (x's last dimension, or a third of a raw qkv's)."""
@@ -239,23 +254,34 @@ def _launch_backward(x, kernel, bias, g, num_heads: int):
     b = bias.to(x.dtype).contiguous()
     f32 = dict(device=x.device, dtype=torch.float32)
     wgmma = backward_wgmma_route(x.dtype, d)
-    qkv = torch.empty((n, s, 3 * d), device=x.device, dtype=x.dtype)
+    tiled = backward_f32_tiled_route(x.dtype, d)
+    # the f32 route keeps qkv on chip; the others recompute it into memory
+    qkv = None if tiled else torch.empty((n, s, 3 * d), device=x.device, dtype=x.dtype)
     # cast(dqkv) on the wgmma route, the f32 sums otherwise
     dqkv = torch.empty((n, s, 3 * d), device=x.device,
                        dtype=x.dtype if wgmma else torch.float32)
-    partial = torch.empty((plans.qkv_bwd_partials(n, s, d, wgmma),), **f32)
+    lib = kbuild.library()
+    if x.dtype == torch.bfloat16:
+        fn, extra = lib.orbit_fused_qkv_attention_bwd_bf16, []
+        partials = plans.qkv_bwd_partials(n, s, d, wgmma)
+    else:
+        fn, sms = lib.orbit_fused_qkv_attention_bwd_f32, kbuild.sm_count(x.device)
+        # the f32 route's plan: sequences a row tile, the grads launch's
+        # data tile rows and runs of dW's K; the card's SMs
+        extra = [plans.qkv_bwd_f32_rows(n, s, num_heads, sms) // s,
+                 *plans.sgemm_grads_plan(n * s, [(d, 3 * d)], (d, 3 * d), sms), sms]
+        partials = (plans.qkv_bwd_f32_partials(n, s, d, num_heads, sms) if tiled
+                    else plans.qkv_bwd_partials(n, s, d, False))
+    partial = torch.empty((partials,), **f32)
     dx = torch.empty_like(x)
     dw = torch.empty((d, 3 * d), **f32)
     db = torch.empty((3 * d,), **f32)
-    lib = kbuild.library()
-    fn = (lib.orbit_fused_qkv_attention_bwd_bf16 if x.dtype == torch.bfloat16
-          else lib.orbit_fused_qkv_attention_bwd_f32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), g.data_ptr(),
-                  qkv.data_ptr(), dqkv.data_ptr(), partial.data_ptr(),
-                  dx.data_ptr(), dw.data_ptr(), db.data_ptr(), n, s, d,
-                  num_heads, stream)
+                  None if qkv is None else qkv.data_ptr(), dqkv.data_ptr(),
+                  partial.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(), n, s, d,
+                  num_heads, *extra, stream)
     kbuild.check(code, "fused_qkv_attention_bwd")
     kbuild.LAUNCHES["fused_qkv_attention_bwd"] += 1
     return dx, dw, db
