@@ -230,14 +230,30 @@ Phases, each of which passes or raises:
    gradients per tensor within 2e-4 and task 0's argmax on 99% of the
    frames held, as phase 9 holds the B0 FineTuner's), its time to
    personalise through the kernels and through the plain versions, and
-   the idle share of a traced short personalise. Phase 14's seconds and
+   the idle share of a traced short personalise. Phase 14's seconds are
+   printed.
+15. the entry points of ``graft_entry_torch.py`` and the golden file
+   of the JAX package's outputs (``data/golden_torch``,
+   ``orbit_tpu_torch/models/golden.py``): (1) ``entry()``, the flagship
+   forward (EfficientNet-B0 ProtoNets, f32, 224 px, 16 + 16 frames) on
+   the golden file's fake B0, through the kernels and through the plain
+   versions (logits within 1e-3 of their largest value, the argmax equal
+   on all 16 frames, #8 in both forwards' 12 tails, one warm call timed);
+   (2) ``dryrun_multichip(1)`` in a one-rank NCCL group (its six checks,
+   A, B, #4 and #6 in the ViT check's gradient, #8 in the eval checks);
+   (3) every golden record (features of the five backbones, ViT-B/32 and
+   B0 at 84 px, ProtoNets, SimpleCNAPs, CNAPs, the FineTuner, the flagship,
+   ViT-B/32 ProtoNets in bf16) through the kernels, and in f32 also
+   through the plain versions, against the JAX package's CPU outputs: f32
+   within 1e-3 of the largest magnitude with the argmax equal on every
+   frame, bf16 within 2^-4 with the argmax printed. Phase 15's seconds and
    the whole script's are printed.
 
 The line before the last is ``{"kernels": [...]}`` (launches: kernels A and
 B from phase 4, #4 and #6 from phase 5, #7 and #8 from phase 6; #1 and #2
-are on no path and report their launches over phases 4 to 14 together,
+are on no path and report their launches over phases 4 to 15 together,
 which must be 0; their checks and times are phase 3's; ``launches_by_path``
-gives every kernel's launches on each path, phases 8 to 14's paths
+gives every kernel's launches on each path, phases 8 to 15's paths
 included, ``gemm_ms`` the cuBLAS yardsticks of A, B, #4 and #6 by dtype
 and S, ``float32`` the f32 routes' times at S = 50 and 5, and #4's and
 #6's at B = 64 and 13); the
@@ -2698,205 +2714,7 @@ def finetuner_phase(torch, card: str, workdir: Path, label: str, flags: list,
 
 
 # ---------------------------------------------------------------- phase 11 ----
-# Fake upstream checkpoints at the published widths and depths, made from
-# the seed in each upstream's own key layout, independently of the
-# converter: the maps under test (orbit_tpu_torch/models/convert.py) must
-# turn them into the port's parameters.
-def _normal(rng, scale: float = 0.02):
-    import numpy as np
-
-    def draw(*shape, s=scale):
-        return (s * rng.standard_normal(shape, dtype=np.float32)).astype(np.float32)
-    return draw
-
-
-def fake_timm_vit(rng, dim: int, depth: int, tokens: int = 50) -> dict:
-    """timm ``vit_{small,base}_patch32_224``: ``blocks.{i}.attn.qkv.weight``
-    (3D, D) and the like, with its classifier head."""
-    w = _normal(rng)
-    sd = {"cls_token": w(1, 1, dim), "pos_embed": w(1, tokens, dim),
-          "patch_embed.proj.weight": w(dim, 3, 32, 32), "patch_embed.proj.bias": w(dim),
-          "norm.weight": 1 + w(dim, s=0.1), "norm.bias": w(dim),
-          "head.weight": w(1000, dim), "head.bias": w(1000)}
-    for i in range(depth):
-        p = f"blocks.{i}"
-        sd.update({f"{p}.norm1.weight": 1 + w(dim, s=0.1), f"{p}.norm1.bias": w(dim),
-                   f"{p}.attn.qkv.weight": w(3 * dim, dim), f"{p}.attn.qkv.bias": w(3 * dim),
-                   f"{p}.attn.proj.weight": w(dim, dim), f"{p}.attn.proj.bias": w(dim),
-                   f"{p}.norm2.weight": 1 + w(dim, s=0.1), f"{p}.norm2.bias": w(dim),
-                   f"{p}.mlp.fc1.weight": w(4 * dim, dim), f"{p}.mlp.fc1.bias": w(4 * dim),
-                   f"{p}.mlp.fc2.weight": w(dim, 4 * dim), f"{p}.mlp.fc2.bias": w(dim)})
-    return sd
-
-
-def fake_augreg_vit(rng, dim: int, depth: int, heads: int, tokens: int = 50) -> dict:
-    """Google's augreg big_vision ``.npz``: ``Transformer/encoderblock_{i}/
-    MultiHeadDotProductAttention_1/query/kernel`` (D, H, D/H) and the like,
-    the patch kernel already HWIO, with its classifier head."""
-    w = _normal(rng)
-    hd = dim // heads
-    sd = {"cls": w(1, 1, dim), "Transformer/posembed_input/pos_embedding": w(1, tokens, dim),
-          "embedding/kernel": w(32, 32, 3, dim), "embedding/bias": w(dim),
-          "Transformer/encoder_norm/scale": 1 + w(dim, s=0.1),
-          "Transformer/encoder_norm/bias": w(dim),
-          "head/kernel": w(dim, 1000), "head/bias": w(1000)}
-    for i in range(depth):
-        p = f"Transformer/encoderblock_{i}"
-        a = f"{p}/MultiHeadDotProductAttention_1"
-        sd.update({f"{p}/LayerNorm_0/scale": 1 + w(dim, s=0.1), f"{p}/LayerNorm_0/bias": w(dim),
-                   f"{p}/LayerNorm_2/scale": 1 + w(dim, s=0.1), f"{p}/LayerNorm_2/bias": w(dim),
-                   f"{p}/MlpBlock_3/Dense_0/kernel": w(dim, 4 * dim),
-                   f"{p}/MlpBlock_3/Dense_0/bias": w(4 * dim),
-                   f"{p}/MlpBlock_3/Dense_1/kernel": w(4 * dim, dim),
-                   f"{p}/MlpBlock_3/Dense_1/bias": w(dim),
-                   f"{a}/out/kernel": w(heads, hd, dim), f"{a}/out/bias": w(dim)})
-        for m in ("query", "key", "value"):
-            sd[f"{a}/{m}/kernel"] = w(dim, heads, hd)
-            sd[f"{a}/{m}/bias"] = w(heads, hd)
-    return sd
-
-
-def fake_openclip_vit(rng, dim: int, depth: int, tokens: int = 50) -> dict:
-    """open_clip ``open_clip_pytorch_model.bin``: the visual tower
-    (``visual.transformer.resblocks.{i}.attn.in_proj_weight`` and the like,
-    a bias-free patch conv, ``ln_pre``/``ln_post``, ``visual.proj``) and a
-    few of the text tower's tensors, which the map drops."""
-    w = _normal(rng)
-    sd = {"visual.class_embedding": w(dim), "visual.positional_embedding": w(tokens, dim),
-          "visual.conv1.weight": w(dim, 3, 32, 32),
-          "visual.ln_pre.weight": 1 + w(dim, s=0.1), "visual.ln_pre.bias": w(dim),
-          "visual.ln_post.weight": 1 + w(dim, s=0.1), "visual.ln_post.bias": w(dim),
-          "visual.proj": w(dim, 512), "positional_embedding": w(77, 512),
-          "text_projection": w(512, 512), "ln_final.weight": 1 + w(512, s=0.1),
-          "ln_final.bias": w(512), "logit_scale": w(s=1.0),
-          "transformer.resblocks.0.ln_1.weight": 1 + w(512, s=0.1)}
-    for i in range(depth):
-        p = f"visual.transformer.resblocks.{i}"
-        sd.update({f"{p}.ln_1.weight": 1 + w(dim, s=0.1), f"{p}.ln_1.bias": w(dim),
-                   f"{p}.attn.in_proj_weight": w(3 * dim, dim),
-                   f"{p}.attn.in_proj_bias": w(3 * dim),
-                   f"{p}.attn.out_proj.weight": w(dim, dim), f"{p}.attn.out_proj.bias": w(dim),
-                   f"{p}.ln_2.weight": 1 + w(dim, s=0.1), f"{p}.ln_2.bias": w(dim),
-                   f"{p}.mlp.c_fc.weight": w(4 * dim, dim), f"{p}.mlp.c_fc.bias": w(4 * dim),
-                   f"{p}.mlp.c_proj.weight": w(dim, 4 * dim), f"{p}.mlp.c_proj.bias": w(dim)})
-    return sd
-
-
-def fake_timm_efficientnet(rng, arch, stem: int, head: int = 1280) -> dict:
-    """timm ``tf_efficientnet_b0`` / ``tf_efficientnetv2_s`` from the stage
-    table ``arch`` ((type, repeats, k, stride, expansion, out, SE ratio)):
-    ``blocks.{s}.{b}.conv_dw.weight`` and the like, BatchNorms with running
-    statistics and ``num_batches_tracked``, the classifier. Kernels drawn
-    at 1/sqrt(fan in), as tests/test_convert.py draws B0's."""
-    import numpy as np
-
-    sd = {}
-
-    def conv(name, o, i, k, groups=1):
-        fan_in = (i // groups) * k * k
-        sd[f"{name}.weight"] = (rng.standard_normal((o, i // groups, k, k), dtype=np.float32)
-                                * fan_in ** -0.5)
-
-    def bn(name, c):
-        sd[f"{name}.weight"] = (1.0 + 0.05 * rng.standard_normal(c)).astype(np.float32)
-        sd[f"{name}.bias"] = (0.05 * rng.standard_normal(c)).astype(np.float32)
-        sd[f"{name}.running_mean"] = (0.05 * rng.standard_normal(c)).astype(np.float32)
-        sd[f"{name}.running_var"] = (0.9 + 0.1 * rng.random(c)).astype(np.float32)
-        sd[f"{name}.num_batches_tracked"] = np.array(0, np.int64)
-
-    def se(name, c, rd):
-        conv(f"{name}.conv_reduce", rd, c, 1)
-        sd[f"{name}.conv_reduce.bias"] = (0.05 * rng.standard_normal(rd)).astype(np.float32)
-        conv(f"{name}.conv_expand", c, rd, 1)
-        sd[f"{name}.conv_expand.bias"] = (0.05 * rng.standard_normal(c)).astype(np.float32)
-
-    conv("conv_stem", stem, 3, 3)
-    bn("bn1", stem)
-    in_chs = stem
-    for s, (btype, repeats, k, _, exp, out_chs, se_ratio) in enumerate(arch):
-        for b in range(repeats):
-            p = f"blocks.{s}.{b}"
-            mid = int(in_chs * exp)
-            if btype == "cn":
-                conv(f"{p}.conv", out_chs, in_chs, k)
-                bn(f"{p}.bn1", out_chs)
-            elif btype == "er":
-                conv(f"{p}.conv_exp", mid, in_chs, k)
-                bn(f"{p}.bn1", mid)
-                conv(f"{p}.conv_pwl", out_chs, mid, 1)
-                bn(f"{p}.bn2", out_chs)
-            elif btype == "ds":
-                conv(f"{p}.conv_dw", in_chs, in_chs, k, groups=in_chs)
-                bn(f"{p}.bn1", in_chs)
-                se(f"{p}.se", in_chs, max(1, int(in_chs * se_ratio)))
-                conv(f"{p}.conv_pw", out_chs, in_chs, 1)
-                bn(f"{p}.bn2", out_chs)
-            else:  # ir
-                conv(f"{p}.conv_pw", mid, in_chs, 1)
-                bn(f"{p}.bn1", mid)
-                conv(f"{p}.conv_dw", mid, mid, k, groups=mid)
-                bn(f"{p}.bn2", mid)
-                if se_ratio > 0:
-                    se(f"{p}.se", mid, max(1, int(in_chs * se_ratio)))
-                conv(f"{p}.conv_pwl", out_chs, mid, 1)
-                bn(f"{p}.bn3", out_chs)
-            in_chs = out_chs
-    conv("conv_head", head, in_chs, 1)
-    bn("bn2", head)
-    sd["classifier.weight"] = _normal(rng)(1000, head)
-    sd["classifier.bias"] = np.zeros(1000, np.float32)
-    return sd
-
-
-def reference_film_name(path) -> str:
-    """A FiLM leaf's parameter name in the reference recogniser
-    (model/film.py:68-74): ('blocks_1_0', 'bn2', 'scale') ->
-    'blocks.1.0.bn2.weight'."""
-    *mods, leaf = path
-    names = [p for m in mods for p in (m.split("_") if m.startswith("blocks_") else [m])]
-    return ".".join(names + ["weight" if leaf == "scale" else "bias"])
-
-
-def fake_reference_cnaps(rng, film_spec) -> dict:
-    """A full reference CNAPs recogniser on EfficientNet-B0
-    (``torch.save(model.state_dict())`` of SingleStepFewShotRecogniser with
-    ``--adapt_features --classifier versa``): the timm extractor under
-    ``feature_extractor.``, the set encoder's five conv/BatchNorm layers, the
-    FiLM generator's DenseBlocks and regularisers indexed by the sorted
-    reference names of the FiLM leaves (``film_spec``: (path, size)), and
-    the Versa weight and bias processors."""
-    import numpy as np
-
-    from orbit_tpu_torch.models.backbones.efficientnet import ARCHS, STEM_CHS
-
-    w = _normal(rng)
-    sd = {f"feature_extractor.{k}": v for k, v in fake_timm_efficientnet(
-        rng, ARCHS["efficientnet_b0"], STEM_CHS["efficientnet_b0"]).items()
-        if not k.startswith("classifier.")}
-    in_ch = 3
-    for i in range(1, 6):
-        p = f"set_encoder.encoder.layer{i}"
-        sd.update({f"{p}.0.weight": w(64, in_ch, 3, 3, s=(9 * in_ch) ** -0.5),
-                   f"{p}.0.bias": w(64), f"{p}.1.weight": 1 + w(64, s=0.05),
-                   f"{p}.1.bias": w(64), f"{p}.1.running_mean": np.zeros(64, np.float32),
-                   f"{p}.1.running_var": np.ones(64, np.float32),
-                   f"{p}.1.num_batches_tracked": np.array(0, np.int64)})
-        in_ch = 64
-    sizes = {reference_film_name(path): size for path, size in film_spec}
-    for i, name in enumerate(sorted(sizes)):
-        p = f"film_generator.generators.{i}"
-        sd.update({f"{p}.block.0.weight": w(64, 64, s=0.125), f"{p}.block.0.bias": w(64),
-                   f"{p}.block.1.weight": 1 + w(64, s=0.05), f"{p}.block.1.bias": w(64),
-                   f"{p}.block.3.weight": w(sizes[name], 64, s=0.01),
-                   f"{p}.block.3.bias": w(sizes[name], s=0.01),
-                   f"film_generator.regularizers.{i}": w(sizes[name], s=0.001)})
-    for proc, out in (("weight_processor", 1280), ("bias_processor", 1)):
-        for lin, fan_in in (("linear1", 1280), ("linear2", out), ("linear3", out)):
-            sd[f"classifier.{proc}.{lin}.weight"] = w(out, fan_in, s=fan_in ** -0.5)
-            sd[f"classifier.{proc}.{lin}.bias"] = w(out)
-    return sd
-
-
+# The fake upstream checkpoints are models/fakes.py's.
 def _save_upstream(sd: dict, path: Path) -> None:
     import numpy as np
 
@@ -2962,6 +2780,9 @@ def pretrained_phase(torch, card: str, workdir: Path) -> dict:
 
     from orbit_tpu_torch.models.backbones.efficientnet import (ARCHS, STEM_CHS,
                                                                efficientnet_film_spec)
+    from orbit_tpu_torch.models.fakes import (fake_augreg_vit, fake_openclip_vit,
+                                              fake_reference_cnaps, fake_timm_efficientnet,
+                                              fake_timm_vit, reference_film_name)
 
     script = _convert_script()
     workdir.mkdir(parents=True, exist_ok=True)
@@ -3722,6 +3543,144 @@ def f32_paths_phase(torch, card: str, workdir: Path) -> dict:
     return paths
 
 
+
+# ------------------------------------------------------------ phase 15 ----
+
+# The golden records of the JAX package (data/golden_torch) on the card, f32:
+# the card's kernels against the JAX package's CPU outputs, through 12-16
+# layers or blocks in another summation order; held to 1e-3 of each tensor's
+# largest magnitude (the CPU tests hold the plain versions to 2e-4). bf16:
+# PATH_REL_TOL, as phase 4 holds the kernels against the plain versions.
+GOLDEN_F32_TOL = 1e-3
+# the kernels each golden record's forward runs: by backbone family, and #7
+# under the Mahalanobis head
+GOLDEN_KERNELS = {"efficientnet": ["fused_dw_act"],
+                  "vit": ["fused_qkv_attention", "fused_mlp_block"]}
+# the dry run's checks and the kernels each runs on the card: the train
+# steps compose every depthwise tail (train-mode BatchNorm), so none
+DRYRUN_KERNELS = {"train": [], "query": ["fused_dw_act"],
+                  "vit": ["fused_qkv_attention", "fused_mlp_block",
+                          "fused_qkv_attention_bwd", "fused_mlp_block_bwd"],
+                  "finetune": ["fused_dw_act"], "task_eval": ["fused_dw_act"],
+                  "task_finetune": ["fused_dw_act"]}
+
+
+def golden_kernels(record) -> list:
+    names = list(GOLDEN_KERNELS[record.backbone.split("_")[0]])
+    if record.classifier == "mahalanobis":
+        names.append("mahalanobis_logits")
+    return names
+
+
+def graft_entry_phase(torch, card: str, device: str = "cuda") -> tuple:
+    """Phase 15: the entry points (``graft_entry_torch.py``) and the
+    golden file on the card. (1) ``entry()``, the flagship forward (B0
+    ProtoNets, f32, 224 px) on the golden file's fake B0, through the
+    kernels and through the plain versions: the logits within
+    GOLDEN_F32_TOL of their largest value, the argmax equal on all 16
+    frames, #8 launched in both forwards' 12 tails, one warm call timed;
+    (2) ``dryrun_multichip(1)`` in a one-rank NCCL group, its line printed,
+    kernels A, B, #4, #6 (the ViT check) and #8 (the eval checks)
+    launched; (3) every golden record replayed through the kernels, and in
+    f32 also through the plain versions (a kernel's error apart from the
+    device's): f32 within GOLDEN_F32_TOL of the largest magnitude with the
+    argmax equal on every frame, bf16 within PATH_REL_TOL with the argmax
+    printed. Returns (paths, their kernels). ``device`` "cpu" rehearses
+    the phase (one gloo rank)."""
+    import graft_entry_torch as ge
+    import numpy as np
+
+    from orbit_tpu_torch.kernels import build as kbuild
+    from orbit_tpu_torch.models import golden
+
+    t0 = time.perf_counter()
+    manifest, arrays = golden.load()
+    paths, expected = {}, {}
+
+    def counts() -> dict:
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return {name: kbuild.LAUNCHES[name] for name in KERNELS}
+
+    # (1) the flagship forward, on the golden record's weights and episode
+    flagship = golden.RECORD["flagship_efficientnet_b0"]
+    golden.inputs(flagship, manifest)  # entry()'s episode is the record's
+    fn, args = ge.entry(device, golden.extractor_state_dict(flagship, arrays))
+    fn(*args)
+    counts()
+    kbuild.reset_launch_counts()
+    start = time.perf_counter()
+    logits = fn(*args)
+    paths["graft_entry"] = counts()
+    warm_ms = 1e3 * (time.perf_counter() - start)
+    expected["graft_entry"] = ["fused_dw_act"]
+    if paths["graft_entry"]["fused_dw_act"] != 2 * B0_DW_PER_FORWARD:
+        raise AssertionError(f"entry(): #8 launched {paths['graft_entry']['fused_dw_act']} "
+                             f"times in two forwards, not {2 * B0_DW_PER_FORWARD}")
+    args[0].impl = "reference"
+    plain = fn(*args)
+    real = args[4].bool()
+    ours, ref = logits[:, real].float().cpu().numpy(), plain[:, real].float().cpu().numpy()
+    rel = float(np.abs(ours - ref).max() / np.abs(ref).max())
+    agree = int((ours.argmax(1) == ref.argmax(1)).sum())
+    if rel > GOLDEN_F32_TOL or agree != ours.shape[0]:
+        raise AssertionError(f"entry(): kernels vs plain versions {rel:.3e} of the largest "
+                             f"logit, argmax {agree}/{ours.shape[0]}")
+    print(f"phase 15 (1): entry(), B0 ProtoNets f32 224 px, 16 + 16 frames ({card}): logits "
+          f"{tuple(logits.shape)}, one warm call {warm_ms:.2f} ms, #8 "
+          f"{paths['graft_entry']['fused_dw_act']} launches; kernels vs plain versions max "
+          f"rel {rel:.3e}, argmax {agree}/{ours.shape[0]}")
+    entry_out = tuple({"logits": out.float().cpu().numpy()} for out in (logits, plain))
+    del fn, args
+
+    # (2) the dry run in a one-rank NCCL group
+    start = time.perf_counter()
+    rank = ge.dryrun_multichip(1, device)["ranks"][0]
+    for check, names in DRYRUN_KERNELS.items():
+        launched = rank["launches"][check]
+        paths[f"dryrun_{check}"] = {name: launched.get(name, 0) for name in KERNELS}
+        if names:
+            expected[f"dryrun_{check}"] = names
+    print(f"phase 15 (2): dryrun_multichip(1), one-rank NCCL group ({card}): "
+          f"{time.perf_counter() - start:.1f} s, ViT gradient vs plain versions max rel "
+          f"{rank['vit_worst_vs_plain']:.3e}")
+
+    # (3) the golden records through the kernels (and the plain versions);
+    # the flagship record's forwards are (1)'s
+    for record in golden.RECORDS:
+        want = golden.outputs_of(arrays, record)
+        class_mask = golden.draw_inputs(record).get("class_mask")
+        rec = None
+        if record.kind == "flagship":
+            got, plain = entry_out
+        else:
+            rec = golden.build(record, golden.stats_of(arrays, record), device)
+            kbuild.reset_launch_counts()
+            got = golden.replay(record, manifest, arrays, device, rec=rec)
+            path = f"golden_{record.name}"
+            paths[path], expected[path] = counts(), golden_kernels(record)
+        worst, agree, frames = golden.error(record, got, want, class_mask)
+        line, plain_agree = f"kernels {worst:.3e}", ""
+        if record.dtype == "float32":
+            if rec is not None:
+                rec.impl = "reference"
+                plain = golden.replay(record, manifest, arrays, device, impl="reference",
+                                      rec=rec)
+            plain_worst, plain_agree, _ = golden.error(record, plain, want, class_mask)
+            line += f", plain versions {plain_worst:.3e}"
+            plain_agree = f" (plain versions {plain_agree}/{frames})"
+        if frames:
+            line += f"; argmax {agree}/{frames}" + (plain_agree if record.dtype == "float32"
+                                                    else " (printed, not held)")
+        print(f"phase 15 (3): golden {record.name} ({card}): worst vs the JAX package {line}")
+        limit = GOLDEN_F32_TOL if record.dtype == "float32" else PATH_REL_TOL
+        if worst > limit or (record.dtype == "float32" and agree != frames):
+            raise AssertionError(f"golden {record.name}: {line} (limit {limit})")
+        del rec
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    return paths, expected
+
+
 def main(argv=None) -> int:
     global SEED
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one GPU")
@@ -3822,6 +3781,9 @@ def main(argv=None) -> int:
         paths.update(unrun_configs_phase(torch, card, Path(tmp) / "unrun"))
         # phase 14: the f32 ViT train and FineTuner+FiLM paths (#4's and #6's f32 routes)
         paths.update(f32_paths_phase(torch, card, Path(tmp) / "f32_paths"))
+    # phase 15: the entry points and the golden file of the JAX package
+    entry_paths, entry_kernels = graft_entry_phase(torch, card)
+    paths.update(entry_paths)
     # the kernels each path must launch; a kernel's row reports the first
     # path that launches it
     path_kernels = {"eval": ["fused_qkv_attention", "fused_mlp_block"],
@@ -3859,7 +3821,8 @@ def main(argv=None) -> int:
                     "f32_vit_train_84": ["fused_qkv_attention", "fused_mlp_block",
                                          "fused_qkv_attention_bwd", "fused_mlp_block_bwd"],
                     "f32_finetune_vit_film": ["fused_qkv_attention", "fused_mlp_block",
-                                              "fused_qkv_attention_bwd", "fused_mlp_block_bwd"]}
+                                              "fused_qkv_attention_bwd", "fused_mlp_block_bwd"],
+                    **entry_kernels}
     path_of = {}
     for path, names in path_kernels.items():
         unused = [n for n in names if paths[path][n] < 1]

@@ -23,7 +23,8 @@ The upstream key maps below are copies of ``orbit_tpu/models/convert.py``
 ``convert_vit``, ``convert_vit_npz``, ``convert_vit_openclip``,
 ``convert_extractor``, ``convert_set_encoder``, ``convert_film_generator``,
 ``convert_versa``, ``convert_recogniser_checkpoint``, ``save_converted`` and
-``load_pretrained_extractor``. Each produces the Flax-layout tree, which
+``load_pretrained_extractor`` (and :func:`load_upstream_extractor`, which
+takes the state dict in memory). Each produces the Flax-layout tree, which
 then goes through the one renaming above, so a converted checkpoint is a
 flax msgpack file that either package loads:
 
@@ -526,27 +527,41 @@ def save_converted(out_path: str, params: Dict, batch_stats: Dict) -> None:
 
 def load_pretrained_extractor(recogniser, path: str) -> None:
     """Load a converted extractor checkpoint (``save_converted``'s flax file)
-    into ``recogniser.extractor`` in place, validating every leaf's shape
-    against the initialised model: a leaf the model lacks, or one of the
-    model's that the file does not set, raises."""
+    into ``recogniser.extractor`` in place (:func:`_load_extractor`)."""
     from orbit_tpu_torch.utils.checkpoint import load_checkpoint
 
     tree = load_checkpoint(path)
     if set(tree) - {"params", "batch_stats"} or "params" not in tree:
         raise ValueError(f"{path}: not a converted extractor (top-level keys {sorted(tree)})")
-    state = from_jax_variables({"params": {"extractor": tree["params"]},
-                                "batch_stats": {"extractor": tree.get("batch_stats") or {}}})
+    _load_extractor(recogniser, tree["params"], tree.get("batch_stats") or {}, path)
+
+
+def load_upstream_extractor(recogniser, sd: Dict[str, np.ndarray]) -> None:
+    """Load an upstream backbone state dict (timm, augreg or open_clip
+    layout, as :func:`convert_extractor` reads it) into
+    ``recogniser.extractor`` in place (:func:`_load_extractor`)."""
+    params, stats = convert_extractor(sd, recogniser.feature_extractor_name)
+    _load_extractor(recogniser, params, stats, "the state dict")
+
+
+def _load_extractor(recogniser, params: Dict, stats: Dict, what: str) -> None:
+    """Flax-layout extractor ``params`` and ``stats`` into
+    ``recogniser.extractor``, validating every leaf's shape against the
+    initialised model: a leaf the model lacks, or one of the model's that
+    ``what`` does not set, raises."""
+    state = from_jax_variables({"params": {"extractor": params},
+                                "batch_stats": {"extractor": stats}})
     own = recogniser.extractor.state_dict()
     ours = {k[len("extractor."):]: v for k, v in state.items()}
     extra, missing = sorted(set(ours) - set(own)), sorted(set(own) - set(ours))
     if extra or missing:
-        raise ValueError(f"{path} does not match the {recogniser.feature_extractor_name} "
+        raise ValueError(f"{what} does not match the {recogniser.feature_extractor_name} "
                          f"extractor: leaves it lacks {missing[:5]}, leaves the "
                          f"extractor lacks {extra[:5]}")
     wrong = [(k, tuple(v.shape), tuple(own[k].shape)) for k, v in ours.items()
              if v.shape != own[k].shape]
     if wrong:
-        raise ValueError(f"shape mismatch in {path} (leaf, file, model): {wrong[:5]}")
+        raise ValueError(f"shape mismatch in {what} (leaf, file, model): {wrong[:5]}")
     recogniser.extractor.load_state_dict(ours, strict=True)
 
 
