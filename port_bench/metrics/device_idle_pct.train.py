@@ -1,0 +1,6 @@
+"""Share of the traced steps' host time with nothing running on the device."""
+from port_bench import measure
+
+
+def read(run):
+    return measure.idle_pct(run)

@@ -1,0 +1,7 @@
+"""The traced steps' model FLOPs (real rows, forward and backward) over their
+host time at the card's float32 peak."""
+from port_bench import measure
+
+
+def read(run):
+    return measure.mfu_pct(run)
